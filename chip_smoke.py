@@ -16,11 +16,23 @@ times both kernels at the main path's shapes, and
 the engine's waves (median and p90 of 100, a per-phase split from CUDA
 events, and a torch.profiler window for the device's idle share).
 
+Then the XNOR-popcount GEMM (K3): bit-exact against its plain version on
+ragged shapes, driven through ``xnor_gemm`` at the two full-width shapes of
+the paper's XNOR baseline (VGG16 conv6 and LeNet-5 fc1), exact against
+``torch._int_mm`` on the +-1 int8 operands, and timed beside it.  Last the
+NullaNet flow: ``run_flow`` trains a binarized MLP at LeNet-5's FC widths
+(400 -> 120 -> 84 -> 10) on the card, converts both hidden layers to logic
+and runs them through all four backends (plain, K1 per layer, K2 for the
+stack, the engine), which must agree bit for bit; then the default
+(exact, enumerated) configuration, whose logic must keep the binarized
+model's accuracy exactly.
+
 Output, one JSON object per line: ``env``, ``build``, ``parity``,
-``main_path``, ``timing`` and ``engine``; then the card's name and power
-limit as nvidia-smi prints them; then a ``kernels`` line (per kernel: its
-launches on the main path, its largest difference from the plain version,
-its time, the plain version's time and the card's bound); and last
+``main_path``, ``timing``, ``engine``, ``xnor`` and ``flow``; then the
+card's name and power limit as nvidia-smi prints them; then a ``kernels``
+line (per kernel: its launches on the main paths, its largest difference
+from the plain version, its time, the plain version's time, the card's
+bound and the library call's time); and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before the last line.  Without CUDA, or outside a checkout, it exits
 non-zero and prints no result.
@@ -38,15 +50,36 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory rate
 INT32_LANES_PER_SM = 64              # int32 ops per SM per clock
+POPC_PER_SM = 16                     # int32 popcounts per SM per clock (cc 9.0)
+# H100 SXM dense int8 tensor-core peak at 700 W: the fastest published rate
+# for an operand type that holds +-1 (the data sheet gives no b1 rate)
+INT8_OPS_PER_S = 1.979e15
 K1_REPLACES = "src/repro/kernels/logic_dsp/kernel.py:96"
 K2_REPLACES = "src/repro/kernels/logic_dsp/kernel.py:204"
+K3_REPLACES = "src/repro/kernels/xnor_gemm/kernel.py:44"
 KERNEL_SOURCE = "src/repro_torch/csrc/logic_dsp.cu"
+K3_SOURCE = "src/repro_torch/csrc/xnor_gemm.cu"
 BATCHES = (1, 31, 32, 33, 70, 8192)
 # LeNet-5 fc1 at the paper's geometry (benchmarks/workloads.py LENET5_LAYERS)
 FANIN, NEURONS, ISF_SAMPLES = 400, 120, 400
 CAPACITY = 8192                      # samples per engine wave
 MAX_GATES = 12000                    # partition budget of the pipelined cell
 TIMED_WAVES = 100                    # p90 of 100 waves has 10 beyond it
+# K3 at the full-width shapes of the paper's XNOR baseline
+# (benchmarks/workloads.py): (M, N, k)
+XNOR_SHAPES = {
+    # VGG16 conv6: 256 images x 8*8 patches, 256 filters, fanin 3*3*256
+    "vgg16_conv6": (256 * 8 * 8, 256, 3 * 3 * 256),
+    # LeNet-5 fc1: one engine wave of samples, 120 neurons, fanin 400
+    "lenet5_fc1": (CAPACITY, NEURONS, FANIN),
+}
+XNOR_PARITY = ([(64, 48, 100), (128, 128, 512), (17, 5, 33), (256, 64, 2304)]
+               + [(m, n, k) for m in (1, 17, 4097) for n in (1, 17, 4097)
+                  for k in (1, 33, 100, 2304)])
+# the NullaNet flow at LeNet-5's FC widths: 400 ISF training samples (as
+# fc1 above) and one full engine wave of validation samples
+FLOW_WIDTHS = dict(n_features=FANIN, hidden=(NEURONS, 84), n_classes=10)
+FLOW_TRAIN, FLOW_VAL = ISF_SAMPLES, CAPACITY
 
 
 def emit(obj: dict) -> None:
@@ -115,8 +148,12 @@ def run(args, torch) -> None:
     # -- 1. build ------------------------------------------------------------
     t0 = time.perf_counter()
     K.library()
-    ptxas = [ln.strip() for ln in K.build_info.get("ptxas", "").splitlines()
-             if "Used" in ln or "spill" in ln]
+    ptxas, kernel = {}, None                   # ptxas -v lines by kernel
+    for ln in K.build_info["ptxas"].splitlines():
+        if "entry function" in ln:
+            kernel = ln.split("'")[1]
+        elif kernel and ("Used" in ln or "spill" in ln):
+            ptxas.setdefault(kernel, []).append(ln.strip())
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": K.build_info["seconds"], "library":
           str(Path(K.build_info["path"]).relative_to(ROOT))
@@ -445,21 +482,46 @@ def run(args, torch) -> None:
             torch, lambda: [eng.serve(graph, s) for s in slabs])
     emit(eng_out)
 
+    popc_per_s = props.multi_processor_count * POPC_PER_SM * clock_mhz * 1e6
+    xnor = xnor_phase(args, torch, dev, cuda_ms, popc_per_s, smi)
+    flow = flow_phase(torch, dev)
+    paths = {"fc1": launches, "xnor": xnor["launches"],
+             "flow": flow["launches"], "flow_default": flow["default"]["launches"]}
+    check(xnor["launches"]["xnor"] == len(XNOR_SHAPES),
+          "xnor_gemm made one K3 launch per full-width call")
+
+    def path_launches(kind):
+        return {k: v[kind] for k, v in paths.items() if v.get(kind)}
+
+    vgg = xnor["timing"]["vgg16_conv6"]
     kernels = [
         {"name": "mega_kernel, one stage (K1)", "route": "cuda",
          "source": KERNEL_SOURCE, "replaces": K1_REPLACES,
-         "launches": launches["logic"], "max_abs_err": max_err["logic"],
+         "launches": sum(path_launches("logic").values()),
+         "launches_by_path": path_launches("logic"),
+         "max_abs_err": max_err["logic"],
          "ms": timing["K1"]["ms"], "plain_ms": timing["K1"]["plain_ms"],
          "bound_ms": timing["K1"]["bound_ms"],
          "bound_by": timing["K1"]["bound_by"], "library_ms": None},
         {"name": "mega_kernel (K2)", "route": "cuda",
          "source": KERNEL_SOURCE, "replaces": K2_REPLACES,
-         "launches": launches["mega"], "max_abs_err": max_err["mega"],
+         "launches": sum(path_launches("mega").values()),
+         "launches_by_path": path_launches("mega"),
+         "max_abs_err": max_err["mega"],
          "ms": timing["K2/monolithic"]["ms"],
          "plain_ms": timing["K2/monolithic"]["plain_ms"],
          "bound_ms": timing["K2/monolithic"]["bound_ms"],
          "bound_by": timing["K2/monolithic"]["bound_by"],
          "library_ms": None},
+        {"name": "xnor_kernel (K3)", "route": "cuda", "source": K3_SOURCE,
+         "replaces": K3_REPLACES,
+         "launches": sum(path_launches("xnor").values()),
+         "launches_by_path": path_launches("xnor"),
+         "max_abs_err": xnor["max_abs_err"], "at": "vgg16_conv6",
+         "ms": vgg["ms"], "plain_ms": vgg["plain_ms"],
+         "bound_ms": vgg["bound_ms"], "bound_by": vgg["bound_by"],
+         "design_bound_ms": vgg["design_bound_ms"],
+         "library_ms": vgg["library_ms"]},
     ]
     print(smi, flush=True)
     emit({"kernels": kernels})
@@ -468,22 +530,175 @@ def run(args, torch) -> None:
                                  "count": torch.cuda.device_count()}})
 
 
-def profile_waves(torch, serve_all) -> dict:
-    """Trace ``serve_all`` with torch.profiler: wall time, the union of the
-    device's busy intervals, its idle share, the mega kernel's device time
-    per wave, and device time by kernel name (the five largest).  Busy
-    time is None when the trace holds no device events."""
+def xnor_phase(args, torch, dev, cuda_ms, popc_per_s, smi) -> dict:
+    """K3: bit-exact against its plain version on the reference test's
+    shapes and ragged ones (row 0 of A all ones, so words with bit 31 set),
+    then ``xnor_gemm`` at the full-width shapes as the main path, each
+    output exact against ``torch._int_mm`` on the +-1 int8 operands, then
+    the kernel, its plain version and ``_int_mm`` timed there."""
+    import numpy as np
+
+    from repro_torch.kernels.xnor_gemm import (kernel as K3, pack_pm1,
+                                               xnor_gemm, xnor_packed_ref)
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 3)
+
+    def operands(m, n, k):
+        a = torch.from_numpy(rng.integers(0, 2, (m, k), dtype=np.uint8)).to(dev)
+        b = torch.from_numpy(rng.integers(0, 2, (n, k), dtype=np.uint8)).to(dev)
+        a[0] = 1
+        return a, b
+
+    def err(x, y) -> int:
+        return int((x.long() - y.long()).abs().max()) if x.numel() else 0
+
+    max_err, failures = 0, []
+    for m, n, k in XNOR_PARITY:
+        a, b = operands(m, n, k)
+        ap, bp = pack_pm1(a), pack_pm1(b)
+        e = err(K3.xnor_cuda_call(ap, bp, k), xnor_packed_ref(ap, bp, k))
+        torch.cuda.synchronize()
+        max_err = max(max_err, e)
+        if e:
+            failures.append(f"{m}x{n}x{k}")
+    parity_s = time.perf_counter() - t0
+
+    full = {name: operands(*shape) for name, shape in XNOR_SHAPES.items()}
+    K3.reset_launch_counts()                    # main path starts here
+    outs = {name: xnor_gemm(a, b, device=dev) for name, (a, b) in full.items()}
+    torch.cuda.synchronize()
+    launches = {"xnor": K3.launch_count("xnor")}  # main path ends here
+
+    timing = {}
+    for name, (m, n, k) in XNOR_SHAPES.items():
+        a, b = full[name]
+        ap, bp = pack_pm1(a), pack_pm1(b)
+        a8 = (2 * a.to(torch.int8) - 1).contiguous()
+        b8t = (2 * b.to(torch.int8) - 1).contiguous().t()
+        lib = torch._int_mm(a8, b8t)
+        plain = xnor_packed_ref(ap, bp, k)
+        torch.cuda.synchronize()
+        check(outs[name].shape == (m, n), f"xnor {name}: output shape")
+        e = max(err(outs[name], plain), err(outs[name], lib))
+        max_err = max(max_err, e)
+        check(e == 0, f"xnor {name}: K3 == plain == _int_mm")
+        kw = ap.shape[1]
+        nbytes = (m * kw + n * kw + m * n) * 4
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * m * n * k / INT8_OPS_PER_S * 1e3
+        timing[name] = {
+            "m": m, "n": n, "k": k, "kw": kw,
+            "ms": cuda_ms(lambda: K3.xnor_cuda_call(ap, bp, k), args.reps),
+            "plain_ms": cuda_ms(lambda: xnor_packed_ref(ap, bp, k), 3,
+                                warmup=1),
+            "library_ms": cuda_ms(lambda: torch._int_mm(a8, b8t), args.reps),
+            "device_ms": device_ms_per_call(
+                torch, lambda: K3.xnor_cuda_call(ap, bp, k), 50),
+            "library_device_ms": device_ms_per_call(
+                torch, lambda: torch._int_mm(a8, b8t), 50),
+            "bytes": nbytes, "int8_ops": 2 * m * n * k,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            # the design's own limit: M*N*Kw popcounts at the popc rate
+            "design_bound_ms": max(t_bytes, m * n * kw / popc_per_s * 1e3)}
+    out = {"phase": "xnor", "parity_cases": len(XNOR_PARITY),
+           "failures": failures, "tolerance": 0, "max_abs_err": max_err,
+           "parity_s": parity_s, "launches": launches,
+           "library": "torch._int_mm on the +-1 int8 operands",
+           "int8_ops_per_s": INT8_OPS_PER_S, "popc_per_s": popc_per_s,
+           "reps": args.reps, "nvidia_smi": smi,
+           "timing": timing}
+    emit(out)
+    check(not failures and max_err == 0, f"K3 parity failed: {failures}")
+    return out
+
+
+def flow_phase(torch, dev) -> dict:
+    """The NullaNet flow on the card: ``run_flow`` at LeNet-5's FC widths
+    (ISF conversion, all four backends, an engine of one full wave), then
+    the default exact configuration.  Launches are counted over each
+    ``run_flow`` call alone."""
+    from repro_torch.core.spec import CompileSpec
+    from repro_torch.flow import BACKENDS, FlowConfig, run_flow
+    from repro_torch.kernels.logic_dsp import kernel as K
+    from repro_torch.serve import LogicEngine
+
+    n = FLOW_TRAIN + FLOW_VAL
+    cfg = FlowConfig(**FLOW_WIDTHS, n_samples=n, val_frac=FLOW_VAL / n,
+                     noise=0.05, train_steps=300, seed=0,
+                     spec=CompileSpec(n_unit=256), mode="auto")
+    check(not cfg.exact and cfg.backends == BACKENDS,
+          "LeNet-5 widths convert by ISF through all four backends")
+    engine = LogicEngine(cfg.spec, capacity=CAPACITY, device=dev)
+    t0 = time.perf_counter()
+    K.reset_launch_counts()                     # flow path starts here
+    report, _ = run_flow(cfg, device=dev, engine=engine)
+    torch.cuda.synchronize()
+    launches = {k: K.launch_count(k) for k in ("logic", "mega", "xnor")}
+    wall_s = time.perf_counter() - t0           # flow path ends here
+    waves = engine.stats()["invocations"]
+    out = {"phase": "flow",
+           "model": "binarized MLP at LeNet-5's FC widths ("
+                    + " -> ".join(map(str, (cfg.n_features, *cfg.hidden,
+                                            cfg.n_classes))) + ")",
+           **summary(report), "wall_s": wall_s, "engine_waves": waves,
+           "launches": launches}
+
+    K.reset_launch_counts()                     # default flow starts here
+    default, _ = run_flow(FlowConfig(), device=dev)
+    torch.cuda.synchronize()
+    out["default"] = {
+        "model": "FlowConfig() (12 -> 10 -> 8 -> 4, enumerated)",
+        **summary(default),
+        "launches": {k: K.launch_count(k) for k in ("logic", "mega",
+                                                     "xnor")}}
+    emit(out)
+    check(report.n_train == FLOW_TRAIN and report.n_val == FLOW_VAL,
+          f"flow split is {FLOW_TRAIN} / {FLOW_VAL}")
+    check(report.bit_identical, "flow backends bit-identical")
+    check(launches["logic"] == len(cfg.hidden), "one K1 launch per layer")
+    check(waves == 1 and launches["mega"] == 1 + waves,
+          "one K2 launch for the megakernel, one per engine wave")
+    check(out["default"]["launches"]["logic"] == 2 and
+          out["default"]["launches"]["mega"] > 1,
+          "default flow launched K1 per layer and K2")
+    check(default.exact_mode and default.parity and default.bit_identical,
+          "default flow: exact parity, bit-identical backends")
+    return out
+
+
+def summary(report) -> dict:
+    return {"float_acc": report.float_acc,
+            "binarized_acc": report.binarized_acc,
+            "logic_acc": report.logic_acc, "parity": report.parity,
+            "bit_identical": report.bit_identical,
+            "exact_mode": report.exact_mode,
+            "eval_ms": {k: v * 1e3 for k, v in report.eval_s.items()},
+            "train_s": report.train_s, "convert_s": report.convert_s,
+            "layers": [{k: st[k] for k in ("name", "n_inputs", "n_outputs",
+                                           "n_gates", "n_steps", "depth")}
+                       for st in report.layers],
+            "n_train": report.n_train, "n_val": report.n_val}
+
+
+def traced(torch, fn):
+    """Run ``fn`` under torch.profiler; returns the wall time (us), the
+    union of the device's busy intervals (us; None when the trace holds no
+    device work) and device time by kernel name (ms).  The profiler's own
+    "Activity Buffer Request" spans are not device work and are left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        waves = len(serve_all())
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and e.name != "Activity Buffer Request")
     busy_us, lo, hi = 0.0, None, None
     for s, e in spans:
         if hi is None or s > hi:
@@ -494,14 +709,34 @@ def profile_waves(torch, serve_all) -> dict:
     busy_us += 0.0 if hi is None else hi - lo
     by_name = sorted(((a.key, a.self_device_time_total / 1e3)
                       for a in prof.key_averages()
-                      if a.self_device_time_total > 0),
+                      if a.self_device_time_total > 0
+                      and a.key != "Activity Buffer Request"),
                      key=lambda kv: -kv[1])
+    return wall_us, busy_us if spans else None, by_name
+
+
+def profile_waves(torch, serve_all) -> dict:
+    """Trace ``serve_all`` (one call per wave): wall time, the device's busy
+    time and idle share, the mega kernel's device time per wave, and
+    device time by kernel name (the five largest)."""
+    waves = []
+    wall_us, busy_us, by_name = traced(
+        torch, lambda: waves.extend(serve_all()))
     kernel_ms = sum(ms for name, ms in by_name if "mega_kernel" in name)
-    return {"waves": waves, "wall_ms": wall_us / 1e3,
-            "device_busy_ms": busy_us / 1e3 if spans else None,
-            "device_idle_share": 1 - busy_us / wall_us if spans else None,
-            "kernel_device_ms_per_wave": kernel_ms / waves,
+    return {"waves": len(waves), "wall_ms": wall_us / 1e3,
+            "device_busy_ms": None if busy_us is None else busy_us / 1e3,
+            "device_idle_share": (None if busy_us is None
+                                  else 1 - busy_us / wall_us),
+            "kernel_device_ms_per_wave": kernel_ms / len(waves),
             "device_ms_by_name": dict(by_name[:5])}
+
+
+def device_ms_per_call(torch, fn, calls: int) -> float | None:
+    """The device's busy time per call of ``fn`` over ``calls`` calls back
+    to back (profiler trace), after one untraced warm-up call."""
+    fn()
+    _, busy_us, _ = traced(torch, lambda: [fn() for _ in range(calls)])
+    return None if busy_us is None else busy_us / 1e3 / calls
 
 
 def artifact_of(engine):

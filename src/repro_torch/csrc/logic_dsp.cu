@@ -203,7 +203,9 @@ int logic_dsp_mega(const int* src_a, const int* src_b, const int* dst,
   return static_cast<int>(cudaGetLastError());
 }
 
-const char* logic_dsp_error_string(int err) {
+// The CUDA error text behind a return code of this library's launchers
+// (this one and xnor_gemm_launch), for the Python wrappers' exceptions.
+const char* repro_torch_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -1,13 +1,12 @@
-"""Build, bind and launch the hand-written CUDA gate-program executor.
+"""Bind and launch the hand-written CUDA gate-program executor.
 
 The kernel lives in ``repro_torch/csrc/logic_dsp.cu``: ``mega_kernel``
 replaces the Pallas ``_mega_kernel`` / ``mega_pallas_call`` (K2) and, as
 its one-stage case, ``_logic_kernel`` / ``logic_pallas_call`` (K1), both in
-``src/repro/kernels/logic_dsp/kernel.py``.  At first use ``nvcc`` compiles
-the source for ``sm_90a`` into a shared library with a plain C interface,
-keyed on a hash of the source and flags, under ``build/repro_torch/`` of the
-checkout (``REPRO_TORCH_BUILD_DIR`` overrides it); ``ctypes`` binds it.
-Nothing is built or loaded when this module is imported.
+``src/repro/kernels/logic_dsp/kernel.py``.  ``repro_torch.kernels.native``
+builds it with the port's other CUDA sources into one library at first use
+and binds it; its ``build``, ``build_info``, ``library`` and launch
+counters are re-exported here.
 
 The wrappers take CUDA tensors only, allocate the output and the scratch
 with ``torch.empty``, launch on the current stream without synchronising,
@@ -18,18 +17,15 @@ versions are in ``ref.py``; ``ops.py`` picks between them by device.
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import subprocess
-import time
-from pathlib import Path
-
 import torch
 
-SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "logic_dsp.cu"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from repro_torch.kernels.native import (build, build_dir, build_info,
+                                        count_launch, launch_count, library,
+                                        raise_on, reset_launch_counts)
+
+__all__ = ["build", "build_dir", "build_info", "cols_per_block",
+           "launch_count", "library", "logic_cuda_call", "mega_cuda_call",
+           "reset_launch_counts"]
 
 #: Word columns each block owns.  A block's steps are latency-bound, so its
 #: time grows with its columns from 2 up (an H100 sweep over 1..32 at the
@@ -37,90 +33,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 COLS_PER_BLOCK = 2
 #: Largest dynamic shared memory a block may take on Hopper (227 KB).
 MAX_SMEM = 232_448
-
-# ---------------------------------------------------------------------------
-# launch accounting (plain integers, bumped only where a kernel launches)
-# ---------------------------------------------------------------------------
-
-_launches = {"logic": 0, "mega": 0}
-
-
-def launch_count(kernel: str | None = None) -> int:
-    """Kernel launches issued so far: one kernel's (``"logic"`` = K1,
-    ``"mega"`` = K2) or, with no argument, both together."""
-    if kernel is None:
-        return sum(_launches.values())
-    return _launches[kernel]
-
-
-def reset_launch_counts() -> None:
-    for k in _launches:
-        _launches[k] = 0
-
-
-# ---------------------------------------------------------------------------
-# build and bind
-# ---------------------------------------------------------------------------
-
-_lib: ctypes.CDLL | None = None
-#: What the last build did: library path, seconds, and nvcc's ptxas report
-#: (empty when the library was already built).
-build_info: dict = {}
-
-
-def build_dir() -> Path:
-    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
-    if env:
-        return Path(env)
-    return Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME); the "
-                           "logic_dsp kernels are built with nvcc")
-    return str(Path(CUDA_HOME) / "bin" / "nvcc")
-
-
-def build() -> Path:
-    """Compile ``logic_dsp.cu`` unless a library for this exact source and
-    flag set exists already; returns the library's path."""
-    digest = hashlib.sha256(SOURCE.read_bytes() +
-                            " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = build_dir()
-    lib = out_dir / f"liblogic_dsp_{digest}.so"
-    if lib.exists():
-        build_info.update(path=str(lib), seconds=0.0, ptxas="")
-        return lib
-    out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{lib.name}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    build_info.update(path=str(lib), seconds=time.perf_counter() - t0,
-                      ptxas=proc.stderr)
-    return lib
-
-
-def library() -> ctypes.CDLL:
-    """The built and bound kernel library (built on first call)."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.logic_dsp_mega.argtypes = [p, p, p, p, p, p, i, i, i, p, p, p,
-                                       p, p, p, i, i, p]
-        lib.logic_dsp_mega.restype = i
-        lib.logic_dsp_error_string.argtypes = [i]
-        lib.logic_dsp_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
 
 
 # ---------------------------------------------------------------------------
@@ -152,12 +64,6 @@ def _check(device: torch.device, **tensors: torch.Tensor) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def _raise_on(err: int, kernel: str) -> None:
-    if err != 0:
-        msg = library().logic_dsp_error_string(err).decode()
-        raise RuntimeError(f"{kernel} launch failed: CUDA error {err} ({msg})")
-
-
 def _launch(kind: str, src_a, src_b, dst, opcode, step_branch,
             input_words, stage_table, out_addrs, out_rows, *, n_addr: int,
             n_outputs: int, chain: bool, handoff_rows: int) -> torch.Tensor:
@@ -184,8 +90,8 @@ def _launch(kind: str, src_a, src_b, dst, opcode, step_branch,
             int(chain), n_unit, _ptr(input_words), _ptr(out_addrs),
             _ptr(out_rows), _ptr(scratch), _ptr(handoff), _ptr(out), w, bw,
             stream)
-    _raise_on(err, "mega_kernel")
-    _launches[kind] += 1
+    raise_on(err, "mega_kernel")
+    count_launch(kind)
     return out
 
 

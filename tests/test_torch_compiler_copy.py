@@ -1,9 +1,12 @@
-"""Drift guard for the port's copy of the numpy compiler (repro_torch.core).
+"""Drift guard for the port's copies of the reference's numpy modules.
 
-The copies are verbatim apart from their import lines, and both packages
-must produce the same schedule for the same graph, array by array: "one
-scheduler, one schedule" holds in substance even though the port imports
-nothing of ``repro``.
+The copies are verbatim apart from their import lines (the compiler under
+``repro_torch.core``, the simulator, the flow's layer conversion), or
+verbatim function by function where the port keeps only part of a module
+or ports the rest to PyTorch.  Both packages must produce the same
+schedule for the same graph, array by array: "one scheduler, one
+schedule" holds in substance even though the port imports nothing of
+``repro``.
 """
 import re
 from pathlib import Path
@@ -21,14 +24,34 @@ from repro_torch.core.nullanet import layer_to_graph
 from repro_torch.core.spec import CompileSpec
 
 ROOT = Path(__file__).resolve().parents[1]
-COPIED = ["errors", "gate_ir", "levelize", "packing", "opt", "spec",
-          "cost_model", "calibrate", "scheduler", "verify", "partition",
-          "optimizer", "compiler", "artifact_store", "espresso"]
+COPIED = [f"core/{m}" for m in (
+    "errors", "gate_ir", "levelize", "packing", "opt", "spec", "cost_model",
+    "calibrate", "scheduler", "verify", "partition", "optimizer", "compiler",
+    "artifact_store", "espresso", "simulator")] + ["flow/convert"]
+# modules the port copies in part: these top-level definitions verbatim
+COPIED_DEFS = {
+    "data/synthetic": ("make_binary_classification", "train_val_split"),
+    "core/nullanet": ("ENUM_LIMIT", "neuron_isf", "neuron_enumerated",
+                      "layer_to_graph", "LogicNetwork", "BinaryMLPConfig"),
+    "flow/classifier": ("input_bits", "hard_forward"),
+    "flow/report": ("FlowConfig", "EndToEndReport"),
+}
+# partial copies that differ from the reference in these lines alone
+# (reference text -> port text): they take the parameters to the host, so
+# torch tensors on the card convert as they are
+ADAPTED_DEFS = {
+    ("core/nullanet", "mlp_to_logic_network"): [
+        ("params_np = {k: np.asarray(v) for k, v in params.items()}",
+         "params_np = host_params(params)")],
+    ("flow/classifier", "build_classifier"): [
+        ("alloc=alloc, optimize=optimize)\n",
+         "alloc=alloc, optimize=optimize)\n    params = host_params(params)\n")],
+}
 IMPORT = re.compile(r"^(\s*)(from|import) repro\.", re.M)
 # calibrate's measurement helpers drive the phase-split kernel path, which
 # the port does not have yet
-LEFT_OUT = {"calibrate": ("def measure_program_phases(",
-                          "def collect_probes(")}
+LEFT_OUT = {"core/calibrate": ("def measure_program_phases(",
+                               "def collect_probes(")}
 
 STREAMS = ("src_a", "src_b", "dst", "opcode", "step_branch", "output_addrs")
 MEGA = ("src_a", "src_b", "dst", "opcode", "step_branch", "step_trash",
@@ -44,10 +67,23 @@ def _strip_functions(text, starts):
     return text
 
 
+def _top_level_defs(text: str) -> dict[str, str]:
+    """Each top-level def, class (with its decorators) or assignment of a
+    module, by name, with its source text up to the next one."""
+    starts = [m for m in re.finditer(
+        r"^(?:@[^\n]*\n)*(?:def |class )?([A-Za-z_]\w*)\b", text, re.M)
+        if not text[m.start():].startswith(("from ", "import "))]
+    out = {}
+    for m, nxt in zip(starts, starts[1:] + [None]):
+        end = len(text) if nxt is None else nxt.start()
+        out.setdefault(m.group(1), text[m.start():end].rstrip())
+    return out
+
+
 @pytest.mark.parametrize("name", COPIED)
 def test_copy_is_verbatim_but_for_imports(name):
-    ref = (ROOT / "src" / "repro" / "core" / f"{name}.py").read_text()
-    port = (ROOT / "src" / "repro_torch" / "core" / f"{name}.py").read_text()
+    ref = (ROOT / "src" / "repro" / f"{name}.py").read_text()
+    port = (ROOT / "src" / "repro_torch" / f"{name}.py").read_text()
     lines = port.splitlines(keepends=True)
     while lines and lines[0].startswith("#"):       # the source note
         lines.pop(0)
@@ -55,6 +91,29 @@ def test_copy_is_verbatim_but_for_imports(name):
     want = IMPORT.sub(r"\1\2 repro_torch.", ref)
     want = _strip_functions(want, LEFT_OUT.get(name, ()))
     assert port.rstrip() == want.rstrip()
+
+
+@pytest.mark.parametrize("name,defs", sorted(COPIED_DEFS.items()))
+def test_partial_copy_is_verbatim_but_for_imports(name, defs):
+    ref = IMPORT.sub(r"\1\2 repro_torch.",
+                     (ROOT / "src" / "repro" / f"{name}.py").read_text())
+    port = (ROOT / "src" / "repro_torch" / f"{name}.py").read_text()
+    want, got = _top_level_defs(ref), _top_level_defs(port)
+    for d in defs:
+        assert d in got, f"{name}: {d} is missing"
+        assert got[d] == want[d], f"{name}: {d} differs from the reference"
+
+
+@pytest.mark.parametrize("name,defn", sorted(ADAPTED_DEFS))
+def test_adapted_copy_differs_only_in_its_named_lines(name, defn):
+    ref = IMPORT.sub(r"\1\2 repro_torch.",
+                     (ROOT / "src" / "repro" / f"{name}.py").read_text())
+    port = (ROOT / "src" / "repro_torch" / f"{name}.py").read_text()
+    want = _top_level_defs(ref)[defn]
+    for old, new in ADAPTED_DEFS[name, defn]:
+        assert want.count(old) == 1, f"{name}: {old!r} left the reference"
+        want = want.replace(old, new)
+    assert _top_level_defs(port)[defn] == want
 
 
 def _pair(seed, n_inputs=10, n_gates=260, n_outputs=8):

@@ -16,8 +16,16 @@ from repro_torch.core.scheduler import (build_megaprogram, compile_graph,
                                         execute_megaprogram_np,
                                         execute_program_np)
 from repro_torch.core.spec import CompileSpec
+from repro_torch.core.nullanet import (BinaryMLPConfig, init_binary_mlp,
+                                       mlp_to_logic_network,
+                                       train_binary_mlp)
+from repro_torch.flow import FlowConfig, build_classifier, run_flow
+from repro_torch.kernels import native
 from repro_torch.kernels.logic_dsp import kernel as _k
 from repro_torch.kernels.logic_dsp import ops
+from repro_torch.kernels.xnor_gemm import (pack_pm1, xnor_gemm,
+                                           xnor_packed_ref)
+from repro_torch.kernels.xnor_gemm import kernel as _xk
 from repro_torch.serve import LogicEngine
 
 
@@ -123,18 +131,62 @@ def test_cols_per_block_refuses_oversized_unit():
 
 
 def test_build_is_keyed_on_source_hash(tmp_path, monkeypatch):
-    """A built library is reused only for the identical source and flags:
-    the file name carries their hash (no nvcc is run here)."""
+    """A built library is reused only for the identical sources and flags:
+    its file name carries a hash over every ``csrc/*.cu`` and the flags,
+    so a change to any one source asks for a new build (no nvcc is run
+    here)."""
     monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "b"))
     assert _k.build_dir() == tmp_path / "b"
-    import hashlib
-    digest = hashlib.sha256(_k.SOURCE.read_bytes() +
-                            " ".join(_k.NVCC_FLAGS).encode()).hexdigest()[:16]
+    assert {s.name for s in native.sources()} >= {"logic_dsp.cu",
+                                                   "xnor_gemm.cu"}
+    name = native.library_name()
     (tmp_path / "b").mkdir()
-    lib = tmp_path / "b" / f"liblogic_dsp_{digest}.so"
+    lib = tmp_path / "b" / name
     lib.write_bytes(b"")
     assert _k.build() == lib and _k.build_info["seconds"] == 0.0
-    assert "sm_90a" in " ".join(_k.NVCC_FLAGS)
+    assert "sm_90a" in " ".join(native.NVCC_FLAGS)
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for src in native.sources():
+        (csrc / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(native, "CSRC", csrc)
+    assert native.library_name() == name
+    (csrc / "xnor_gemm.cu").write_text("// changed\n")
+    assert native.library_name() != name
+
+
+@pytest.mark.parametrize("entry", ["xnor_gemm", "train_binary_mlp",
+                                   "hidden_bits", "run_flow"])
+def test_flow_and_xnor_entry_points_raise_without_cuda_unless_cpu(no_cuda,
+                                                                  entry):
+    a, b = _bits(6, 9, 40), _bits(7, 5, 40)
+    mcfg = BinaryMLPConfig(n_features=8, hidden=(4,), n_classes=2)
+    x, y = _bits(8, 64, 8).astype(np.float32), np.arange(64) % 2
+    params = {k: v.numpy() for k, v in init_binary_mlp(mcfg).items()}
+    clf = build_classifier(params, 2, x, CompileSpec(n_unit=8))
+    cfg = FlowConfig(n_features=8, hidden=(4,), n_classes=2, n_samples=80,
+                     train_steps=2, backends=("reference", "cuda"))
+    calls = {
+        "xnor_gemm": lambda **kw: xnor_gemm(a, b, **kw),
+        "train_binary_mlp": lambda **kw: train_binary_mlp(
+            mcfg, x, y, steps=2, batch=8, **kw),
+        "hidden_bits": lambda **kw: clf.hidden_bits(x >= 0.5, "cuda", **kw),
+        "run_flow": lambda **kw: run_flow(cfg, **kw),
+    }
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[entry]()
+    before = _k.launch_count()
+    calls[entry](device="cpu")
+    assert _k.launch_count() == before
+
+
+def test_xnor_wrapper_refuses_what_the_kernel_does_not_take():
+    a = pack_pm1(torch.from_numpy(_bits(9, 9, 70)))
+    b = pack_pm1(torch.from_numpy(_bits(10, 5, 70)))
+    before = _k.launch_count("xnor")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _xk.xnor_cuda_call(a, b, 70)
+    assert _k.launch_count("xnor") == before
 
 
 # ---------------------------------------------------------------------------
@@ -190,3 +242,54 @@ def test_engine_one_launch_per_wave_on_card(cuda):
     before = _k.launch_count("mega")
     np.testing.assert_array_equal(eng.serve(g, x), g.evaluate(x))
     assert _k.launch_count("mega") - before == eng.stats()["invocations"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", [(1, 1, 1), (17, 4097, 33), (4097, 17, 100),
+                                   (64, 64, 2304), (8192, 120, 400)])
+def test_xnor_kernel_matches_plain_on_card(cuda, m, n, k):
+    a = torch.from_numpy(_bits(m, m, k)).to(cuda)
+    b = torch.from_numpy(_bits(n + 1, n, k)).to(cuda)
+    a[0] = 1                                   # words with bit 31 set
+    before = _k.launch_count("xnor")
+    got = xnor_gemm(a, b, device=cuda)
+    torch.cuda.synchronize()
+    assert _k.launch_count("xnor") == before + 1
+    want = xnor_packed_ref(pack_pm1(a), pack_pm1(b), k)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_flow_on_card_is_exact_and_uses_the_kernels(cuda):
+    """run_flow on the card: exact-mode parity, bit-identical backends, two
+    K1 launches for the two-layer cuda chain, one K2 launch for the
+    megakernel and one per engine wave."""
+    cfg = FlowConfig(n_features=8, hidden=(6, 5), n_classes=3,
+                     n_samples=700, train_steps=60,
+                     spec=CompileSpec(n_unit=16))
+    eng = LogicEngine(cfg.spec, capacity=256, device=cuda)
+    _k.reset_launch_counts()
+    report, _ = run_flow(cfg, device=cuda, engine=eng)
+    assert report.parity and report.bit_identical
+    assert _k.launch_count("logic") == 2
+    assert _k.launch_count("mega") == 1 + eng.stats()["invocations"]
+
+
+@pytest.mark.cuda
+def test_conversion_takes_parameters_trained_on_card(cuda):
+    """mlp_to_logic_network and build_classifier take train_binary_mlp's
+    tensors on the card as they are, and convert them as their host
+    copies."""
+    cfg = BinaryMLPConfig(n_features=8, hidden=(6, 5), n_classes=3)
+    x = _bits(4, 200, 8).astype(np.float32)
+    y = np.random.default_rng(5).integers(0, 3, 200)
+    params = train_binary_mlp(cfg, x, y, steps=5, device=cuda)
+    assert params["w0"].device.type == "cuda"
+    host = {k: v.cpu().numpy() for k, v in params.items()}
+    net, want = mlp_to_logic_network(params, cfg, x), \
+        mlp_to_logic_network(host, cfg, x)
+    assert [g.fingerprint() for g in net.graphs] == \
+        [g.fingerprint() for g in want.graphs]
+    clf = build_classifier(params, 3, x, CompileSpec(n_unit=16))
+    assert [c.graph.fingerprint() for c in clf.layers] == \
+        [g.fingerprint() for g in want.graphs]
