@@ -3,17 +3,21 @@
 
 Run from the root of a checkout:  ``python3 chip_smoke.py``
 
-It builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc,
-holds each kernel bit-exactly against its plain PyTorch version on the card
-and against the numpy oracle, then drives the serving path at full width:
+It builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc
+(and counts the tensor-core instructions in K3's SASS), holds each kernel
+bit-exactly against its plain PyTorch version on the card and against the
+numpy oracle, in both of K1/K2's scratch variants (shared memory, and
+device memory for a program too large for it), then drives the serving
+path at full width:
 a LeNet-5 ``fc1`` NullaNet layer (400 inputs, 120 neurons, each an ISF
 sampled on 400 patterns; weights and patterns from ``--seed``) synthesized
 with the port's ``layer_to_graph`` and served by ``LogicEngine`` through
 the mega kernel, monolithic and as a 4-program parallel pipeline, plus the
 monolithic program through ``logic_infer_bits`` (the single-program
-kernel K1, launched as the mega kernel's one-stage case).  Finally it
-times both kernels at the main path's shapes, and
-the engine's waves (median and p90 of 100, a per-phase split from CUDA
+kernel K1, launched as the mega kernel's one-stage case), and checks
+that every path took the scratch variant its size implies.  Finally it
+times both kernels at the main path's shapes (with their time per step,
+and the device-memory variant), and the engine's waves (median and p90 of 100, a per-phase split from CUDA
 events, and a torch.profiler window for the device's idle share).
 
 Then the XNOR-popcount GEMM (K3): bit-exact against its plain version on
@@ -31,8 +35,9 @@ Output, one JSON object per line: ``env``, ``build``, ``parity``,
 ``main_path``, ``timing``, ``engine``, ``xnor`` and ``flow``; then the
 card's name and power limit as nvidia-smi prints them; then a ``kernels``
 line (per kernel: its launches on the main paths, its largest difference
-from the plain version, its time, the plain version's time, the card's
-bound and the library call's time); and last
+from the plain version, its device time per call, the plain version's
+time, the card's bound and the library call's device time; K1/K2's
+scratch variant and time per step, K3's tensor-core instruction); and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before the last line.  Without CUDA, or outside a checkout, it exits
 non-zero and prints no result.
@@ -50,16 +55,26 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory rate
 INT32_LANES_PER_SM = 64              # int32 ops per SM per clock
-POPC_PER_SM = 16                     # int32 popcounts per SM per clock (cc 9.0)
-# H100 SXM dense int8 tensor-core peak at 700 W: the fastest published rate
-# for an operand type that holds +-1 (the data sheet gives no b1 rate)
+# H100 SXM dense int8 tensor-core peak at 700 W (data sheet; it gives no
+# b1 rate)
 INT8_OPS_PER_S = 1.979e15
+# K3's route and its rate: b1 mma.sync m16n8k256 with AND-popc, as
+# tools/torch_mma_probe.py measured it on an H100 80GB HBM3 at 700 W,
+# in int8-style operations (2 per bit multiply-add).  The card's peak for
+# a +-1 product is the faster of the two, so K3's bound takes this one.
+K3_ROUTE = "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc"
+B1_MMA_OPS_PER_S = 1.0008750828700428e16
+PM1_OPS_PER_S = max(INT8_OPS_PER_S, B1_MMA_OPS_PER_S)
+TC_SASS = r"\b(?:BMMA|IMMA|HMMA|[HIB]GMMA)[\w.]*"
 K1_REPLACES = "src/repro/kernels/logic_dsp/kernel.py:96"
 K2_REPLACES = "src/repro/kernels/logic_dsp/kernel.py:204"
 K3_REPLACES = "src/repro/kernels/xnor_gemm/kernel.py:44"
 KERNEL_SOURCE = "src/repro_torch/csrc/logic_dsp.cu"
 K3_SOURCE = "src/repro_torch/csrc/xnor_gemm.cu"
 BATCHES = (1, 31, 32, 33, 70, 8192)
+# a program too large for a block's shared memory (rows past 2**16): the
+# device-memory scratch variant
+BIG_GATES = 66_000
 # LeNet-5 fc1 at the paper's geometry (benchmarks/workloads.py LENET5_LAYERS)
 FANIN, NEURONS, ISF_SAMPLES = 400, 120, 400
 CAPACITY = 8192                      # samples per engine wave
@@ -154,11 +169,15 @@ def run(args, torch) -> None:
             kernel = ln.split("'")[1]
         elif kernel and ("Used" in ln or "spill" in ln):
             ptxas.setdefault(kernel, []).append(ln.strip())
+    xnor_sass = tensor_core_sass(K.build_info["path"], "xnor_kernel")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": K.build_info["seconds"], "library":
           str(Path(K.build_info["path"]).relative_to(ROOT))
           if Path(K.build_info["path"]).is_relative_to(ROOT)
-          else K.build_info["path"], "ptxas": ptxas})
+          else K.build_info["path"], "ptxas": ptxas,
+          "xnor_kernel_tensor_core_sass": xnor_sass})
+    check(sum(xnor_sass.values()) > 0,
+          "xnor_kernel issues tensor-core instructions")
 
     max_err = {"logic": 0, "mega": 0}
 
@@ -174,7 +193,7 @@ def run(args, torch) -> None:
         a = ops.program_arrays(prog, dev)
         args_ = (a["src_a"], a["src_b"], a["dst"], a["opcode"],
                  a["step_branch"], a["output_addrs"], words)
-        got = ops.forward_words(*args_, n_addr=a["n_addr"])
+        got = ops.forward_words(*args_, n_addr=a["n_addr"], launch=a)
         plain = ops.forward_words(*args_, n_addr=a["n_addr"], use_ref=True)
         torch.cuda.synchronize()
         err = word_err(got, plain)
@@ -205,6 +224,7 @@ def run(args, torch) -> None:
         return g
 
     t0 = time.perf_counter()
+    K.reset_launch_counts()                     # parity starts here
     cases = failed = 0
     k1_progs = []
     for n_unit in (8, 64, 256):
@@ -258,6 +278,17 @@ def run(args, torch) -> None:
         "parallel_gateless_stage": ([(16, 700, 6), ("pass", 16)], [64, 8],
                                     "perm"),
     }
+    big = compile_graph(random_graph(rng, 64, BIG_GATES, 32, unary_frac=0.2,
+                                     locality=256),
+                        CompileSpec(n_unit=256, alloc="direct",
+                                    optimize="none"))
+    check(ops.program_arrays(big, dev)["plan"].scratch == "device",
+          f"{big.n_addr} rows take the device-memory scratch")
+    for batch in (1, 33, 8192):
+        ok = k1_case(big, rand_bits(batch, big.n_inputs))
+        cases += 1
+        failed += not ok
+        results[f"K1/big_device/b{batch}"] = ok
     for name, (layout, n_units, perm) in mega_cases.items():
         progs = stage_progs(layout, n_units)
         mode = "parallel" if perm else "chain"
@@ -271,10 +302,22 @@ def run(args, torch) -> None:
             cases += 1
             failed += not ok
             results[f"K2/{name}/b{batch}"] = ok
+    big_mega = build_megaprogram([big], mode="chain")
+    for batch in (1, 33, 8192):
+        ok = k2_case(big_mega, rand_bits(batch, big.n_inputs))
+        cases += 1
+        failed += not ok
+        results[f"K2/big_device/b{batch}"] = ok
+    by_variant = variant_counts(K)
     emit({"phase": "parity", "cases": cases, "failed": failed,
           "tolerance": 0, "max_abs_err": max_err, "seconds": time.perf_counter() - t0,
+          "big_program": {"gates": big.n_gates, "n_addr": big.n_addr,
+                          "steps": big.n_steps},
+          "launches_by_variant": by_variant,
           "failures": sorted(k for k, ok in results.items() if not ok)})
     check(failed == 0, f"{failed} kernel/plain parity cases failed")
+    check(by_variant["logic/device"] == 3 and by_variant["mega/device"] == 3,
+          "only the program past shared memory took the device variant")
 
     # -- 3. the main path at full width: LeNet-5 fc1 -------------------------
     t0 = time.perf_counter()
@@ -319,14 +362,25 @@ def run(args, torch) -> None:
     torch.cuda.synchronize()
     launches = {"logic": K.launch_count("logic"),
                 "mega": K.launch_count("mega")}   # main path ends here
+    by_variant = variant_counts(K)
 
     check(launches["logic"] == 1, "logic_infer_bits made one K1 launch")
+    for name, eng in engines.items():
+        plan = ops.mega_arrays(artifact_of(eng).megaprogram(), dev)["plan"]
+        check(plan.scratch == "shared",
+              f"{name}: fc1 fits a block's shared memory")
+    check(ops.program_arrays(prog, dev)["plan"].scratch == "shared",
+          "K1's fc1 program fits shared memory")
+    check(by_variant["logic/shared"] == launches["logic"] and
+          by_variant["mega/shared"] == launches["mega"],
+          f"the main path took the shared variant: {by_variant}")
     check(bool((k1_out == artifact.execute(x_k1)).all()),
           "K1 on the fc1 program matches the numpy oracle")
     main = {"phase": "main_path",
             "model": f"LeNet-5 fc1 ({FANIN} -> {NEURONS})",
             "gates": graph.n_gates, "synth_s": synth_s,
-            "requests": list(sizes), "launches": launches}
+            "requests": list(sizes), "launches": launches,
+            "launches_by_variant": by_variant}
     for name, eng in engines.items():
         outs, k2_launches, waves, first_submit_s = served[name]
         art = arts[name]
@@ -369,26 +423,26 @@ def run(args, torch) -> None:
 
     words = ops.pack_bits(bits_on_card(rand_bits(CAPACITY, FANIN)))
     w = words.shape[1]
-    a1 = ops.program_arrays(prog, dev)
-    k1_args = (a1["src_a"], a1["src_b"], a1["dst"], a1["opcode"],
-               a1["step_branch"], a1["output_addrs"], words)
 
-    def k1():
-        return K.logic_cuda_call(*k1_args[:5], words, a1["output_addrs"],
-                                 n_addr=prog.n_addr)
+    def k1_calls(p, x):
+        a = ops.program_arrays(p, dev)
+        args_ = (a["src_a"], a["src_b"], a["dst"], a["opcode"],
+                 a["step_branch"], a["output_addrs"], x)
+        return (lambda: K.logic_cuda_call(a["rec"], x, a["output_addrs"],
+                                          n_addr=p.n_addr, plan=a["plan"]),
+                lambda: ops.forward_words(*args_, n_addr=p.n_addr,
+                                          use_ref=True))
 
-    def k1_plain():
-        return ops.forward_words(*k1_args, n_addr=prog.n_addr, use_ref=True)
-
+    k1, k1_plain = k1_calls(prog, words)
     max_err["logic"] = max(max_err["logic"], word_err(k1(), k1_plain()))
 
     def mega_call(mega):
         m = ops.mega_arrays(mega, dev)
         return K.mega_cuda_call(
-            m["src_a"], m["src_b"], m["dst"], m["opcode"], m["step_branch"],
-            words, m["stage_table"], m["out_addrs"], m["out_rows"],
+            m["rec"], words, m["stage_table"], m["out_addrs"], m["out_rows"],
             n_addr=mega.n_addr, n_outputs=mega.n_outputs,
-            chain=mega.mode == "chain", handoff_rows=m["handoff_rows"])
+            chain=mega.mode == "chain", handoff_rows=m["handoff_rows"],
+            plan=m["plan"])
 
     megas = {name: art.megaprogram() for name, art in arts.items()}
     for mega in megas.values():
@@ -406,25 +460,53 @@ def run(args, torch) -> None:
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
+    def plan_info(plan, ms, steps):
+        return {"scratch": plan.scratch, "block_cols": plan.cols,
+                "ring": plan.ring, "one_barrier": plan.one_barrier,
+                "smem_bytes": plan.smem_bytes, "steps": steps,
+                "ms_per_step": ms / steps if steps else None}
+
     timing = {"phase": "timing", "batch": CAPACITY, "words": w,
               "reps": args.reps, "nvidia_smi": smi}
-    timing["K1"] = {"ms": cuda_ms(k1, args.reps),
-                    "plain_ms": cuda_ms(k1_plain, 3, warmup=1),
-                    "block_cols": K.cols_per_block(prog.n_unit),
-                    **bound(prog.n_gates, [a1[k] for k in (
-                        "src_a", "src_b", "dst", "opcode", "step_branch",
-                        "output_addrs")], prog.n_inputs, prog.n_outputs)}
+    a1 = ops.program_arrays(prog, dev)
+    # "ms" is the device's busy time per call over 50 calls back to back
+    # (profiler): at these sizes the host's cost per call exceeds the
+    # kernel, so event times over back-to-back calls ("event_ms") measure
+    # the host
+    def times(fn, calls=50):
+        return {"ms": device_ms_per_call(torch, fn, calls),
+                "event_ms": cuda_ms(fn, args.reps)}
+
+    t = times(k1)
+    ms = t["ms"]
+    timing["K1"] = {**t, "plain_ms": cuda_ms(k1_plain, 3, warmup=1),
+                    **plan_info(a1["plan"], ms, prog.n_steps),
+                    **bound(prog.n_gates, [a1["rec"], a1["output_addrs"]],
+                            prog.n_inputs, prog.n_outputs)}
     for name, mega in megas.items():
         m = ops.mega_arrays(mega, dev)
+        t = times(lambda: mega_call(mega))
+        ms = t["ms"]
         timing[f"K2/{name}"] = {
-            "ms": cuda_ms(lambda: mega_call(mega), args.reps),
+            **t,
             "plain_ms": cuda_ms(lambda: ops.mega_forward_words(
                 mega, words, use_ref=True), 3, warmup=1),
-            "block_cols": K.cols_per_block(mega.n_unit),
+            **plan_info(m["plan"], ms, mega.total_steps),
             **bound(sum(p.n_gates for p in mega.stages), [m[k] for k in (
-                "src_a", "src_b", "dst", "opcode", "step_branch",
-                "stage_table", "out_addrs", "out_rows")], mega.n_inputs,
-                mega.n_outputs)}
+                "rec", "stage_table", "out_addrs", "out_rows")],
+                mega.n_inputs, mega.n_outputs)}
+    # the device-memory variant at the same batch, on the program past
+    # shared memory
+    big_words = ops.pack_bits(bits_on_card(rand_bits(CAPACITY,
+                                                     big.n_inputs)))
+    k1_big, _ = k1_calls(big, big_words)
+    ab = ops.program_arrays(big, dev)
+    t = times(k1_big, 10)
+    ms = t["ms"]
+    timing["K1/big_device"] = {
+        **t, **plan_info(ab["plan"], ms, big.n_steps),
+        **bound(big.n_gates, [ab["rec"], ab["output_addrs"]],
+                big.n_inputs, big.n_outputs)}
     emit(timing)
 
     # wave time through the engine (one full-capacity request per wave),
@@ -482,8 +564,7 @@ def run(args, torch) -> None:
             torch, lambda: [eng.serve(graph, s) for s in slabs])
     emit(eng_out)
 
-    popc_per_s = props.multi_processor_count * POPC_PER_SM * clock_mhz * 1e6
-    xnor = xnor_phase(args, torch, dev, cuda_ms, popc_per_s, smi)
+    xnor = xnor_phase(args, torch, dev, cuda_ms, smi)
     flow = flow_phase(torch, dev)
     paths = {"fc1": launches, "xnor": xnor["launches"],
              "flow": flow["launches"], "flow_default": flow["default"]["launches"]}
@@ -500,28 +581,42 @@ def run(args, torch) -> None:
          "launches": sum(path_launches("logic").values()),
          "launches_by_path": path_launches("logic"),
          "max_abs_err": max_err["logic"],
-         "ms": timing["K1"]["ms"], "plain_ms": timing["K1"]["plain_ms"],
+         "ms": timing["K1"]["ms"], "event_ms": timing["K1"]["event_ms"],
+         "plain_ms": timing["K1"]["plain_ms"],
          "bound_ms": timing["K1"]["bound_ms"],
-         "bound_by": timing["K1"]["bound_by"], "library_ms": None},
+         "bound_by": timing["K1"]["bound_by"], "library_ms": None,
+         "scratch": timing["K1"]["scratch"],
+         "ms_per_step": timing["K1"]["ms_per_step"]},
         {"name": "mega_kernel (K2)", "route": "cuda",
          "source": KERNEL_SOURCE, "replaces": K2_REPLACES,
          "launches": sum(path_launches("mega").values()),
          "launches_by_path": path_launches("mega"),
          "max_abs_err": max_err["mega"],
          "ms": timing["K2/monolithic"]["ms"],
+         "event_ms": timing["K2/monolithic"]["event_ms"],
          "plain_ms": timing["K2/monolithic"]["plain_ms"],
          "bound_ms": timing["K2/monolithic"]["bound_ms"],
          "bound_by": timing["K2/monolithic"]["bound_by"],
-         "library_ms": None},
+         "library_ms": None, "scratch": timing["K2/monolithic"]["scratch"],
+         "ms_per_step": timing["K2/monolithic"]["ms_per_step"],
+         "parallel4": {k: timing["K2/parallel4"][k] for k in (
+             "ms", "bound_ms", "scratch", "ms_per_step")},
+         "device_variant": {k: timing["K1/big_device"][k] for k in (
+             "ms", "bound_ms", "scratch", "ms_per_step")}},
         {"name": "xnor_kernel (K3)", "route": "cuda", "source": K3_SOURCE,
+         "instruction": K3_ROUTE,
+         "tensor_core_sass": sum(xnor_sass.values()),
          "replaces": K3_REPLACES,
          "launches": sum(path_launches("xnor").values()),
          "launches_by_path": path_launches("xnor"),
          "max_abs_err": xnor["max_abs_err"], "at": "vgg16_conv6",
-         "ms": vgg["ms"], "plain_ms": vgg["plain_ms"],
+         "ms": vgg["device_ms"], "event_ms": vgg["ms"],
+         "plain_ms": vgg["plain_ms"],
          "bound_ms": vgg["bound_ms"], "bound_by": vgg["bound_by"],
-         "design_bound_ms": vgg["design_bound_ms"],
-         "library_ms": vgg["library_ms"]},
+         "library_ms": vgg["library_device_ms"],
+         "library_event_ms": vgg["library_ms"],
+         "lenet5_fc1": {k: xnor["timing"]["lenet5_fc1"][k] for k in (
+             "device_ms", "bound_ms", "library_device_ms")}},
     ]
     print(smi, flush=True)
     emit({"kernels": kernels})
@@ -530,7 +625,7 @@ def run(args, torch) -> None:
                                  "count": torch.cuda.device_count()}})
 
 
-def xnor_phase(args, torch, dev, cuda_ms, popc_per_s, smi) -> dict:
+def xnor_phase(args, torch, dev, cuda_ms, smi) -> dict:
     """K3: bit-exact against its plain version on the reference test's
     shapes and ragged ones (row 0 of A all ones, so words with bit 31 set),
     then ``xnor_gemm`` at the full-width shapes as the main path, each
@@ -586,7 +681,7 @@ def xnor_phase(args, torch, dev, cuda_ms, popc_per_s, smi) -> dict:
         kw = ap.shape[1]
         nbytes = (m * kw + n * kw + m * n) * 4
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = 2 * m * n * k / INT8_OPS_PER_S * 1e3
+        t_ops = 2 * m * n * k / PM1_OPS_PER_S * 1e3
         timing[name] = {
             "m": m, "n": n, "k": k, "kw": kw,
             "ms": cuda_ms(lambda: K3.xnor_cuda_call(ap, bp, k), args.reps),
@@ -597,16 +692,16 @@ def xnor_phase(args, torch, dev, cuda_ms, popc_per_s, smi) -> dict:
                 torch, lambda: K3.xnor_cuda_call(ap, bp, k), 50),
             "library_device_ms": device_ms_per_call(
                 torch, lambda: torch._int_mm(a8, b8t), 50),
-            "bytes": nbytes, "int8_ops": 2 * m * n * k,
+            "bytes": nbytes, "ops": 2 * m * n * k,
             "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            # the design's own limit: M*N*Kw popcounts at the popc rate
-            "design_bound_ms": max(t_bytes, m * n * kw / popc_per_s * 1e3)}
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
     out = {"phase": "xnor", "parity_cases": len(XNOR_PARITY),
            "failures": failures, "tolerance": 0, "max_abs_err": max_err,
            "parity_s": parity_s, "launches": launches,
            "library": "torch._int_mm on the +-1 int8 operands",
-           "int8_ops_per_s": INT8_OPS_PER_S, "popc_per_s": popc_per_s,
+           "int8_ops_per_s": INT8_OPS_PER_S, "route": K3_ROUTE,
+           "route_ops_per_s": B1_MMA_OPS_PER_S,
+           "bound_ops_per_s": PM1_OPS_PER_S,
            "reps": args.reps, "nvidia_smi": smi,
            "timing": timing}
     emit(out)
@@ -637,13 +732,14 @@ def flow_phase(torch, dev) -> dict:
     torch.cuda.synchronize()
     launches = {k: K.launch_count(k) for k in ("logic", "mega", "xnor")}
     wall_s = time.perf_counter() - t0           # flow path ends here
+    by_variant = variant_counts(K)
     waves = engine.stats()["invocations"]
     out = {"phase": "flow",
            "model": "binarized MLP at LeNet-5's FC widths ("
                     + " -> ".join(map(str, (cfg.n_features, *cfg.hidden,
                                             cfg.n_classes))) + ")",
            **summary(report), "wall_s": wall_s, "engine_waves": waves,
-           "launches": launches}
+           "launches": launches, "launches_by_variant": by_variant}
 
     K.reset_launch_counts()                     # default flow starts here
     default, _ = run_flow(FlowConfig(), device=dev)
@@ -652,8 +748,12 @@ def flow_phase(torch, dev) -> dict:
         "model": "FlowConfig() (12 -> 10 -> 8 -> 4, enumerated)",
         **summary(default),
         "launches": {k: K.launch_count(k) for k in ("logic", "mega",
-                                                     "xnor")}}
+                                                     "xnor")},
+        "launches_by_variant": variant_counts(K)}
     emit(out)
+    for v in (by_variant, out["default"]["launches_by_variant"]):
+        check(v["logic/device"] == 0 and v["mega/device"] == 0,
+              f"the flow's small programs took the shared variant: {v}")
     check(report.n_train == FLOW_TRAIN and report.n_val == FLOW_VAL,
           f"flow split is {FLOW_TRAIN} / {FLOW_VAL}")
     check(report.bit_identical, "flow backends bit-identical")
@@ -737,6 +837,33 @@ def device_ms_per_call(torch, fn, calls: int) -> float | None:
     fn()
     _, busy_us, _ = traced(torch, lambda: [fn() for _ in range(calls)])
     return None if busy_us is None else busy_us / 1e3 / calls
+
+
+def variant_counts(K) -> dict:
+    """K1's and K2's launches so far by scratch variant, as
+    ``{"logic/shared": n, ...}``."""
+    return {f"{k}/{v}": K.launch_count(k, v) for k in ("logic", "mega")
+            for v in ("shared", "device")}
+
+
+def tensor_core_sass(lib_path, kernel: str) -> dict:
+    """Tensor-core instructions in one kernel's SASS, by opcode, from
+    ``cuobjdump --dump-sass`` of the built library."""
+    import re
+
+    from torch.utils.cpp_extension import CUDA_HOME
+    sass = subprocess.run(
+        [str(Path(CUDA_HOME) / "bin" / "cuobjdump"), "--dump-sass",
+         str(lib_path)], capture_output=True, text=True, timeout=120,
+        check=True).stdout
+    counts, inside = {}, False
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            inside = kernel in ln
+        elif inside:
+            for op in re.findall(TC_SASS, ln):
+                counts[op] = counts.get(op, 0) + 1
+    return counts
 
 
 def artifact_of(engine):

@@ -161,7 +161,7 @@ class LogicClassifier:
             words = forward_words(
                 a["src_a"], a["src_b"], a["dst"], a["opcode"],
                 a["step_branch"], a["output_addrs"], words,
-                n_addr=a["n_addr"], use_ref=use_ref)
+                n_addr=a["n_addr"], use_ref=use_ref, launch=a)
         return unpack_bits(words, x.shape[0]).cpu().numpy()
 
     def _serve_engine(self, device):

@@ -12,16 +12,21 @@ opt-in to the CPU.
 
 PyTorch runs eagerly, so there is no runner trace to cache: the per-program
 state is the stream tensors, memoized on the (frozen) program object per
-device.  The kernel takes any ``n_unit``, so the lanes are not padded.
+device, beside what the CUDA kernel reads instead (:func:`launch_records`:
+one index record per lane and step, and the launch plan: scratch variant,
+columns per block, record ring, and whether a step needs one barrier or
+two).  The kernel takes any ``n_unit``, so the lanes are not padded.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.gate_ir import MIXED_DISPATCH
 from repro_torch.core.scheduler import LogicProgram, MegaProgram
 from repro_torch.kernels.logic_dsp import kernel as _k
-from repro_torch.kernels.logic_dsp.ref import (logic_forward_ref,
+from repro_torch.kernels.logic_dsp.ref import (TRUTH_TABLES,
+                                               logic_forward_ref,
                                                mega_forward_ref)
 
 WORD_BITS = 32
@@ -109,6 +114,123 @@ def _check_rows(words: torch.Tensor, n_inputs: int) -> None:
                          f"{tuple(words.shape)}")
 
 
+def _effective_ops(opcode: np.ndarray,
+                   step_branch: np.ndarray) -> np.ndarray:
+    """Each lane's op: the step's bank for a homogeneous step (padding
+    lanes included), the lane's own opcode for a mixed one."""
+    branch = np.asarray(step_branch, dtype=np.int64)[:, None]
+    return np.where(branch < MIXED_DISPATCH, branch,
+                    np.asarray(opcode, dtype=np.int64))
+
+
+def same_step_reads_free(src_a, src_b, dst, opcode, step_branch,
+                         trash=None) -> bool:
+    """True when no step reads a row that the same step writes, counting
+    only reads that matter: a lane that writes its step's ``trash`` row (a
+    scalar, or one per step; None counts every lane) has no reads that
+    matter, NOP reads nothing, NOT and COPY only ``src_a``.  Such a
+    program's writes of a step cannot clobber its reads, so the CUDA kernel
+    runs each step with one barrier instead of two.  A program that reads
+    its trash row where it matters is refused too, since padding lanes
+    write it.  Liveness allocation frees a row at its last reader's step
+    + 1, so compiled programs pass; the check does not rely on that."""
+    src_a, src_b, dst = (np.asarray(x, dtype=np.int64)
+                         for x in (src_a, src_b, dst))
+    n_steps = src_a.shape[0]
+    if n_steps == 0:
+        return True
+    op = _effective_ops(opcode, step_branch)
+    live = np.ones(dst.shape, dtype=bool)
+    if trash is not None:
+        trash_s = np.broadcast_to(np.asarray(trash, dtype=np.int64),
+                                  (n_steps,))[:, None]
+        live = dst != trash_s
+    reads_a = live & (op != 0)
+    reads_b = live & (op >= 1) & (op <= 6)
+    step = np.broadcast_to(np.arange(n_steps, dtype=np.int64)[:, None],
+                           src_a.shape)
+    span = int(max(src_a.max(), src_b.max(), dst.max())) + 1
+    read_keys = np.concatenate([step[reads_a] * span + src_a[reads_a],
+                                step[reads_b] * span + src_b[reads_b]])
+    if np.isin(read_keys, step * span + dst).any():
+        return False
+    if trash is not None:
+        return not ((src_a == trash_s) & reads_a).any() and \
+            not ((src_b == trash_s) & reads_b).any()
+    return True
+
+
+def bank_order(src_a, src_b, dst, cols: int) -> np.ndarray:
+    """A lane order for each step, ``(n_steps, n_unit)``, that spreads the
+    rows each shared-memory wavefront touches over the banks: with rows of
+    ``cols`` words, the ``32 // cols`` lanes of a wavefront hit bank group
+    ``row % (32 // cols)``, and a greedy pass (all steps at once, one lane
+    at a time) puts each lane in the wavefront where its three rows
+    (``src_a``, ``src_b``, ``dst``) collide least.  Lanes of a step are
+    independent, so any order computes the same words."""
+    src_a, src_b, dst = (np.asarray(x, dtype=np.int64)
+                         for x in (src_a, src_b, dst))
+    n_steps, n = src_a.shape
+    width = 32 // cols                    # lanes a wavefront serves
+    groups = -(-n // width)
+    cap = np.full(groups, width)
+    cap[-1] = n - (groups - 1) * width
+    keys = np.stack([src_a % width, src_b % width, dst % width])
+    hits = np.zeros((3, n_steps, groups, width), dtype=np.int64)
+    size = np.zeros((n_steps, groups), dtype=np.int64)
+    slot = np.empty((n_steps, n), dtype=np.int64)
+    steps = np.arange(n_steps)
+    for lane in range(n):
+        k = keys[:, :, lane]
+        cost = sum(hits[j, steps, :, k[j]] for j in range(3))
+        cost = np.where(size < cap, cost * (n + 1) + size, np.iinfo(
+            np.int64).max)
+        g = cost.argmin(axis=1)
+        for j in range(3):
+            hits[j, steps, g, k[j]] += 1
+        slot[:, lane] = g * width + size[steps, g]
+        size[steps, g] += 1
+    order = np.empty((n_steps, n), dtype=np.int64)
+    order[steps[:, None], slot] = np.arange(n)
+    return order
+
+
+def launch_records(src_a, src_b, dst, opcode, step_branch, *, n_addr: int,
+                   trash=None, device=None, scratch: str | None = None,
+                   two_barriers: bool = False) -> dict:
+    """What the CUDA kernel reads for a program's host streams: its launch
+    plan (``kernel.plan_launch`` over ``n_addr``, ``n_unit`` and
+    :func:`same_step_reads_free`) and ``rec``, one int32 record per lane
+    and step on ``device``: ``(src_a | src_b << 16, dst | tt << 16)`` for
+    the shared variant (rows below 2**16), ``(src_a, src_b, dst, tt)`` for
+    the device one, ``tt`` the lane's op as its truth table
+    (``ref.TRUTH_TABLES``); the shared variant's lanes in
+    :func:`bank_order`.  The streams stay as they are.  ``scratch``
+    pins the variant and ``two_barriers`` skips the proof (for the card
+    tests)."""
+    src_a, src_b, dst = (np.asarray(x, dtype=np.int64)
+                         for x in (src_a, src_b, dst))
+    one_barrier = not two_barriers and same_step_reads_free(
+        src_a, src_b, dst, opcode, step_branch, trash)
+    plan = _k.plan_launch(n_addr, src_a.shape[1], one_barrier,
+                          scratch=scratch)
+    op = _effective_ops(opcode, step_branch)
+    table = np.zeros(16, dtype=np.int64)      # unknown opcodes act as NOP
+    table[:len(TRUTH_TABLES)] = TRUTH_TABLES
+    tt = table[np.clip(op, 0, 15)]
+    if plan.scratch == "shared":
+        if src_a.size:
+            order = bank_order(src_a, src_b, dst, plan.cols)
+            src_a, src_b, dst, tt = (np.take_along_axis(x, order, axis=1)
+                                     for x in (src_a, src_b, dst, tt))
+        rec = np.stack([src_a | src_b << 16, dst | tt << 16], axis=-1)
+        rec = rec.astype(np.uint32).view(np.int32)
+    else:
+        rec = np.stack([src_a, src_b, dst, tt], axis=-1).astype(np.int32)
+    return {"rec": torch.from_numpy(np.ascontiguousarray(rec)).to(device),
+            "plan": plan}
+
+
 def program_arrays(prog: LogicProgram, device=None) -> dict:
     """The program's streams as int32 tensors on ``device`` (CUDA unless
     told otherwise), memoized on the program object per device."""
@@ -124,6 +246,10 @@ def program_arrays(prog: LogicProgram, device=None) -> dict:
                          output_addrs=host["output_addrs"])
         arrs = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
         arrs["n_addr"] = prog.n_addr
+        arrs.update(launch_records(
+            host["src_a"], host["src_b"], host["dst"], host["opcode"],
+            host["step_branch"], n_addr=prog.n_addr, trash=prog.trash_addr,
+            device=dev))
         memo[key] = arrs
     return memo[key]
 
@@ -153,6 +279,10 @@ def mega_arrays(mega: MegaProgram, device=None) -> dict:
             raise ValueError("a stage's inputs do not fit the scratch rows")
         arrs = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
         arrs["n_addr"] = mega.n_addr
+        arrs.update(launch_records(
+            host["src_a"], host["src_b"], host["dst"], host["opcode"],
+            host["step_branch"], n_addr=mega.n_addr, trash=mega.step_trash,
+            device=dev))
         # widest stage output handed to a next stage (chain mode)
         arrs["handoff_rows"] = int(meta[:-1, 3].max()) if len(meta) > 1 else 0
         memo[key] = arrs
@@ -165,18 +295,25 @@ def mega_arrays(mega: MegaProgram, device=None) -> dict:
 
 def forward_words(src_a, src_b, dst, opcode, step_branch, output_addrs,
                   words: torch.Tensor, *, n_addr: int,
-                  use_ref: bool = False) -> torch.Tensor:
+                  use_ref: bool = False,
+                  launch: dict | None = None) -> torch.Tensor:
     """Word-level program execution: (n_inputs, W) -> (n_outputs, W) int32.
 
     The CUDA kernel for a CUDA tensor (gateless programs included: it runs
     no step loop and still gathers the outputs), the plain version for a
-    CPU tensor or when ``use_ref`` asks for it."""
+    CPU tensor or when ``use_ref`` asks for it.  The kernel needs
+    ``launch``, the program's ``rec`` and ``plan``, built once per program
+    (``program_arrays`` holds them; :func:`launch_records` builds them for
+    streams of no program); the plain version does not read it."""
     if use_ref or words.device.type == "cpu":
         return logic_forward_ref(src_a, src_b, dst, opcode, words,
                                  output_addrs, n_addr,
                                  step_branch=step_branch)
-    return _k.logic_cuda_call(src_a, src_b, dst, opcode, step_branch, words,
-                              output_addrs, n_addr=n_addr)
+    if launch is None:
+        raise ValueError("the CUDA kernel needs launch= (program_arrays or "
+                         "launch_records), built once per program")
+    return _k.logic_cuda_call(launch["rec"], words, output_addrs,
+                              n_addr=n_addr, plan=launch["plan"])
 
 
 def logic_forward(prog: LogicProgram, input_words: torch.Tensor,
@@ -188,7 +325,7 @@ def logic_forward(prog: LogicProgram, input_words: torch.Tensor,
     return forward_words(
         arrs["src_a"], arrs["src_b"], arrs["dst"], arrs["opcode"],
         arrs["step_branch"], arrs["output_addrs"], input_words,
-        n_addr=arrs["n_addr"], use_ref=use_ref)
+        n_addr=arrs["n_addr"], use_ref=use_ref, launch=arrs)
 
 
 def logic_infer_bits(prog: LogicProgram, bits, device=None,
@@ -215,10 +352,10 @@ def mega_forward_words(mega: MegaProgram, words: torch.Tensor, *,
     if use_ref or words.device.type == "cpu":
         return mega_forward_ref(mega, arrs, words)
     return _k.mega_cuda_call(
-        arrs["src_a"], arrs["src_b"], arrs["dst"], arrs["opcode"],
-        arrs["step_branch"], words, arrs["stage_table"], arrs["out_addrs"],
+        arrs["rec"], words, arrs["stage_table"], arrs["out_addrs"],
         arrs["out_rows"], n_addr=mega.n_addr, n_outputs=mega.n_outputs,
-        chain=(mega.mode == "chain"), handoff_rows=arrs["handoff_rows"])
+        chain=(mega.mode == "chain"), handoff_rows=arrs["handoff_rows"],
+        plan=arrs["plan"])
 
 
 def mega_infer_bits(mega: MegaProgram, bits, device=None,

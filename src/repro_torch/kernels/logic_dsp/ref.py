@@ -12,7 +12,10 @@ Dispatch is *banked*: a step whose branch is below ``MIXED_DISPATCH`` runs
 one slab op on every lane (NOP-padding lanes included; their results land
 on the trash row), and only mixed steps pay the per-lane select.  These are
 what ``ops`` runs for CPU tensors and what the CUDA kernels are held
-against on the card.
+against on the card.  ``logic_forward_records`` and
+``mega_forward_records`` repeat the CUDA kernel's own arithmetic (one index
+record per lane, each lane's op as a truth table) so the CPU tests can hold
+it against the reference.
 """
 from __future__ import annotations
 
@@ -59,6 +62,76 @@ def apply_step(branch: int, opcodes: torch.Tensor, a: torch.Tensor,
     """One step on (n_unit, W) operand slabs: a single bitwise slab op for
     homogeneous steps, the per-lane select otherwise."""
     return STEP_BRANCHES[int(branch)](a, b, opcodes)
+
+
+#: Each opcode's truth table, the op the CUDA kernel applies: bit 2x + y is
+#: op(x, y) (NOP, AND, OR, XOR, NAND, NOR, XNOR, NOT = not a, COPY = a).
+TRUTH_TABLES = (0, 8, 14, 6, 7, 1, 9, 3, 12)
+assert len(TRUTH_TABLES) == MIXED_DISPATCH
+
+
+def apply_truth_table(tt: torch.Tensor, a: torch.Tensor,
+                      b: torch.Tensor) -> torch.Tensor:
+    """The CUDA kernel's op on int32 words: bit k of the result is bit
+    ``2 a_k + b_k`` of ``tt`` (which broadcasts against a/b)."""
+    m = [-((tt >> k) & 1) for k in range(4)]          # 0 or all ones
+    if_a0 = (b & m[1]) | (~b & m[0])
+    if_a1 = (b & m[3]) | (~b & m[2])
+    return (a & if_a1) | (~a & if_a0)
+
+
+def decode_records(rec: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """(src_a, src_b, dst, truth table) of ``(steps, n_unit, 2)`` packed
+    records (``src_a | src_b << 16``, ``dst | tt << 16``) or ``(steps,
+    n_unit, 4)`` wide ones, as int64."""
+    if rec.shape[-1] == 4:
+        return tuple(rec[..., k].long() for k in range(4))
+    lo = rec.long() & 0xFFFF
+    hi = (rec.long() >> 16) & 0xFFFF
+    return lo[..., 0], hi[..., 0], lo[..., 1], hi[..., 1]
+
+
+def logic_forward_records(rec: torch.Tensor, input_words: torch.Tensor,
+                          output_addrs: torch.Tensor,
+                          n_addr: int) -> torch.Tensor:
+    """The CUDA kernel's arithmetic in plain PyTorch: the program run from
+    its index records (``ops.launch_records``) with the truth-table op,
+    every read of a step before its writes.  Computes what
+    :func:`logic_forward_ref` computes from the four streams."""
+    n_inputs, w = input_words.shape
+    buf = torch.zeros((n_addr, w), dtype=torch.int32,
+                      device=input_words.device)
+    buf[1] = -1
+    buf[2:2 + n_inputs] = input_words
+    src_a, src_b, dst, tt = decode_records(rec)
+    for s in range(rec.shape[0]):
+        tts = tt[s].to(torch.int32)[:, None]
+        buf[dst[s]] = apply_truth_table(tts, buf[src_a[s]], buf[src_b[s]])
+    return buf[output_addrs.long()]
+
+
+def mega_forward_records(rec: torch.Tensor, words: torch.Tensor,
+                         stage_table: torch.Tensor, out_addrs: torch.Tensor,
+                         out_rows: torch.Tensor, n_addr: int,
+                         chain: bool) -> torch.Tensor:
+    """The CUDA kernel's stage walk (K2) in plain PyTorch, from the
+    records of the concatenated streams and the ``ops.mega_arrays`` stage
+    table: chain mode feeds each stage's outputs to the next, parallel
+    mode writes stage output j to row ``out_rows[out_lo + j]``."""
+    h, slabs = words, []
+    for lo, hi, n_in, n_out, o in stage_table.tolist():
+        r = logic_forward_records(rec[lo:hi], (h if chain else words)[:n_in],
+                                  out_addrs[o:o + n_out], n_addr)
+        if chain:
+            h = r
+        else:
+            slabs.append(r)
+    if chain:
+        return h
+    cat = torch.cat(slabs)
+    out = torch.empty_like(cat)
+    out[out_rows.long()] = cat
+    return out
 
 
 def logic_forward_ref(src_a: torch.Tensor, src_b: torch.Tensor,

@@ -31,24 +31,30 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # ---------------------------------------------------------------------------
 
 #: ``"logic"`` = K1, ``"mega"`` = K2 (both ``mega_kernel``), ``"xnor"`` = K3.
-_launches = {"logic": 0, "mega": 0, "xnor": 0}
+KERNELS = ("logic", "mega", "xnor")
+#: Launches per (kernel, variant); K1 and K2 name their scratch variant
+#: (``"shared"`` or ``"device"``), K3 has none.
+_launches: dict[tuple[str, str | None], int] = {}
 
 
-def launch_count(kernel: str | None = None) -> int:
+def launch_count(kernel: str | None = None,
+                 variant: str | None = None) -> int:
     """Kernel launches issued so far: one kernel's (``"logic"`` = K1,
-    ``"mega"`` = K2, ``"xnor"`` = K3) or, with no argument, all together."""
-    if kernel is None:
-        return sum(_launches.values())
-    return _launches[kernel]
+    ``"mega"`` = K2, ``"xnor"`` = K3), one variant's (K1 and K2:
+    ``"shared"`` or ``"device"`` scratch), both, or with no argument all
+    together."""
+    return sum(n for (k, v), n in _launches.items()
+               if kernel in (None, k) and variant in (None, v))
 
 
 def reset_launch_counts() -> None:
-    for k in _launches:
-        _launches[k] = 0
+    _launches.clear()
 
 
-def count_launch(kernel: str) -> None:
-    _launches[kernel] += 1
+def count_launch(kernel: str, variant: str | None = None) -> None:
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown kernel {kernel!r}")
+    _launches[kernel, variant] = _launches.get((kernel, variant), 0) + 1
 
 
 # ---------------------------------------------------------------------------
@@ -59,7 +65,8 @@ def count_launch(kernel: str) -> None:
 #: as ``c_void_p``, so they are not cut to 32 bits).
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "logic_dsp_mega": ([_P] * 6 + [_I] * 3 + [_P] * 6 + [_I] * 2 + [_P], _I),
+    "logic_dsp_mega": ([_P, _I, _P, _I, _I, _I] + [_P] * 6 + [_I] * 8 + [_P],
+                       _I),
     "xnor_gemm_launch": ([_P] * 3 + [_I] * 4 + [_P], _I),
     "repro_torch_error_string": ([_I], ctypes.c_char_p),
 }

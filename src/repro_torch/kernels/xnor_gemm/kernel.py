@@ -2,8 +2,10 @@
 
 The kernel lives in ``repro_torch/csrc/xnor_gemm.cu`` and replaces the
 Pallas ``_xnor_kernel`` / ``xnor_gemm_pallas`` of
-``src/repro/kernels/xnor_gemm/kernel.py``.  ``repro_torch.kernels.native``
-builds it with the port's other CUDA sources into one library at first use.
+``src/repro/kernels/xnor_gemm/kernel.py``.  It runs on the binary tensor
+cores (b1 ``mma.sync`` with AND-popc; ``ref.xnor_and_popc_ref`` is its
+arithmetic in plain PyTorch).  ``repro_torch.kernels.native`` builds it
+with the port's other CUDA sources into one library at first use.
 The wrapper takes CUDA tensors only, allocates the output with
 ``torch.empty``, launches on the current stream without synchronising,
 raises on a launch error and counts its launches (``launch_count("xnor")``).
@@ -19,7 +21,7 @@ from repro_torch.kernels.native import (count_launch, launch_count, library,
 
 __all__ = ["launch_count", "reset_launch_counts", "xnor_cuda_call"]
 
-_TILE = 64              # output rows / columns a block owns (xnor_gemm.cu)
+_TILE_N = 128           # output columns a block owns (xnor_gemm.cu)
 _MAX_GRID_Y = 65_535    # N tiles go on the grid's y axis
 
 
@@ -48,7 +50,7 @@ def xnor_cuda_call(a_packed: torch.Tensor, b_packed: torch.Tensor,
         raise ValueError(f"K-word mismatch: {kw} vs {kw2}")
     if not 0 <= k_bits <= 32 * kw:
         raise ValueError(f"k_bits={k_bits} does not fit {kw} words")
-    if -(-n // _TILE) > _MAX_GRID_Y or max(m, n, kw) >= 2 ** 31:
+    if -(-n // _TILE_N) > _MAX_GRID_Y or max(m, n, kw) >= 2 ** 31:
         raise ValueError(f"shape ({m}, {n}, {kw}) exceeds the launch grid")
     out = torch.empty((m, n), dtype=torch.int32, device=a_packed.device)
     if out.numel() == 0:

@@ -4,7 +4,9 @@
 the dense +-1 product on unpacked bits.  ``xnor_packed_ref`` is the plain
 twin of the CUDA kernel (``csrc/xnor_gemm.cu``): the same packed operands,
 the same ``k_bits - 2 * popcount(a ^ b)``.  The CPU path runs it, and the
-card's kernel is held against it.
+card's kernel is held against it.  ``xnor_and_popc_ref`` is the kernel's
+own arithmetic, the AND-popcount identity its binary tensor-core
+instruction computes, in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -47,3 +49,22 @@ def xnor_packed_ref(a_packed: torch.Tensor, b_packed: torch.Tensor,
     for w in range(kw):
         acc += _popcount(a_packed[:, w, None] ^ b_packed[None, :, w])
     return k_bits - 2 * acc
+
+
+def xnor_and_popc_ref(a_packed: torch.Tensor, b_packed: torch.Tensor,
+                      k_bits: int) -> torch.Tensor:
+    """What ``xnor_kernel`` computes, by its route: ``popc(a ^ b) =
+    popc(a) + popc(b) - 2 popc(a & b)``, so the result is
+    ``k_bits - 2 (pa[m] + pb[n]) + 4 sum_w popc(a[m, w] & b[n, w])`` with
+    ``pa``, ``pb`` the rows' popcounts.  Zero words past the real K (the
+    kernel's padding) count nothing on either side."""
+    m, kw = a_packed.shape
+    n, kw2 = b_packed.shape
+    if kw != kw2:
+        raise ValueError(f"K-word mismatch: {kw} vs {kw2}")
+    pa = _popcount(a_packed).sum(dim=1, dtype=torch.int32)
+    pb = _popcount(b_packed).sum(dim=1, dtype=torch.int32)
+    both = torch.zeros((m, n), dtype=torch.int32, device=a_packed.device)
+    for w in range(kw):
+        both += _popcount(a_packed[:, w, None] & b_packed[None, :, w])
+    return k_bits - 2 * (pa[:, None] + pb[None, :]) + 4 * both

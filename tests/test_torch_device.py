@@ -23,8 +23,8 @@ from repro_torch.flow import FlowConfig, build_classifier, run_flow
 from repro_torch.kernels import native
 from repro_torch.kernels.logic_dsp import kernel as _k
 from repro_torch.kernels.logic_dsp import ops
-from repro_torch.kernels.xnor_gemm import (pack_pm1, xnor_gemm,
-                                           xnor_packed_ref)
+from repro_torch.kernels.xnor_gemm import (pack_pm1, xnor_and_popc_ref,
+                                           xnor_gemm, xnor_packed_ref)
 from repro_torch.kernels.xnor_gemm import kernel as _xk
 from repro_torch.serve import LogicEngine
 
@@ -92,18 +92,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     arrs = ops.program_arrays(p, "cpu")
     words = ops.pack_bits(torch.from_numpy(_bits(2, 40, 8)))
     with pytest.raises(ValueError, match="CUDA tensor"):
-        _k.logic_cuda_call(arrs["src_a"], arrs["src_b"], arrs["dst"],
-                           arrs["opcode"], arrs["step_branch"], words,
-                           arrs["output_addrs"], n_addr=p.n_addr)
+        _k.logic_cuda_call(arrs["rec"], words, arrs["output_addrs"],
+                           n_addr=p.n_addr, plan=arrs["plan"])
     mega = build_megaprogram([p], mode="parallel")
     m = ops.mega_arrays(mega, "cpu")
     before = _k.launch_count()
     with pytest.raises(ValueError, match="CUDA tensor"):
-        _k.mega_cuda_call(m["src_a"], m["src_b"], m["dst"], m["opcode"],
-                          m["step_branch"], words, m["stage_table"],
-                          m["out_addrs"], m["out_rows"], n_addr=mega.n_addr,
+        _k.mega_cuda_call(m["rec"], words, m["stage_table"], m["out_addrs"],
+                          m["out_rows"], n_addr=mega.n_addr,
                           n_outputs=mega.n_outputs, chain=False,
-                          handoff_rows=0)
+                          handoff_rows=0, plan=m["plan"])
     assert _k.launch_count() == before
 
 
@@ -121,13 +119,87 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
                                          (58_112, 1)])
 def test_cols_per_block(n_unit, want):
     """Two columns per block whatever the batch; one only when a step's
-    results would not fit shared memory."""
-    assert _k.cols_per_block(n_unit) == want
+    results would not fit shared memory (a device-scratch program whose
+    steps take two barriers; the ring gives way first)."""
+    plan = _k.plan_launch(100_000, n_unit, one_barrier=False)
+    assert plan.scratch == "device" and plan.cols == want
+    assert plan.smem_bytes <= _k.MAX_SMEM
 
 
 def test_cols_per_block_refuses_oversized_unit():
-    with pytest.raises(ValueError, match="shared memory"):
-        _k.cols_per_block(60_000)
+    with pytest.raises(ValueError, match="shared"):
+        _k.plan_launch(100_000, 60_000, one_barrier=False)
+
+
+@pytest.mark.parametrize("n_addr,n_unit,one,want", [
+    # LeNet-5 fc1, monolithic and its widest partitioned stage
+    (14_588, 256, True, ("shared", 2, 4, 14_588 * 8 + 4 * 256 * 8)),
+    (4_937, 256, True, ("shared", 2, 4, 4_937 * 8 + 4 * 256 * 8)),
+    # two barriers stage the step results in shared memory too
+    (14_588, 256, False, ("shared", 2, 4,
+                          14_588 * 8 + 4 * 256 * 8 + 256 * 2 * 4)),
+    # past two columns' room, one column; past one column's, device memory
+    (28_000, 256, True, ("shared", 2, 4, 28_000 * 8 + 4 * 256 * 8)),
+    (29_000, 256, True, ("shared", 1, 4, 29_000 * 4 + 4 * 256 * 8)),
+    (57_000, 256, True, ("shared", 1, 2, 57_000 * 4 + 2 * 256 * 8)),
+    # the shared variant needs a ring of at least two steps
+    (58_000, 256, True, ("device", 2, 4, 4 * 256 * 16)),
+    # rows past 16 bits never take the packed records
+    (70_000, 8, True, ("device", 2, 4, 4 * 8 * 16)),
+    (8, 1, True, ("shared", 2, 4, 8 * 8 + 4 * 8)),
+])
+def test_plan_launch_picks_the_scratch_variant_by_size(n_addr, n_unit, one,
+                                                       want):
+    plan = _k.plan_launch(n_addr, n_unit, one)
+    assert (plan.scratch, plan.cols, plan.ring, plan.smem_bytes) == want
+    assert plan.one_barrier is one and plan.smem_bytes <= _k.MAX_SMEM
+
+
+def test_plan_launch_pins_and_threads():
+    """The plan carries the block's threads and shared memory, which the
+    launch takes as they are; ``scratch`` pins the variant."""
+    assert _k.plan_launch(100, 256, True, scratch="device").scratch == \
+        "device"
+    with pytest.raises(ValueError, match="shared"):
+        _k.plan_launch(70_000, 8, True, scratch="shared")
+    assert _k.plan_launch(100, 256, True).threads == 256
+    assert _k.plan_launch(100, 1500, True).threads == 1024
+    assert _k.plan_launch(100, 5, True).threads == 32
+    device = _k.plan_launch(100, 256, True, scratch="device")
+    assert device.cols == 2 and device.threads == 512
+    for n_addr, n_unit, one in [(100, 256, True), (29_000, 256, False),
+                                (70_000, 8, True)]:
+        plan = _k.plan_launch(n_addr, n_unit, one)
+        assert plan.cols in (1, 2)
+        assert plan.smem_bytes == _k.smem_bytes(
+            plan.scratch, n_unit, plan.cols, n_addr, plan.ring, one)
+        assert plan.threads == _k.threads(plan.scratch, n_unit, plan.cols)
+
+
+def test_forward_words_needs_the_launch_records_off_the_cpu():
+    """Off the CPU ``forward_words`` takes the program's records and plan
+    as given (built once per program) and never builds them per call."""
+    _, p = _prog(4)
+    a = ops.program_arrays(p, "cpu")
+    words = torch.empty((p.n_inputs, 3), dtype=torch.int32, device="meta")
+    before = _k.launch_count()
+    with pytest.raises(ValueError, match="launch="):
+        ops.forward_words(a["src_a"], a["src_b"], a["dst"], a["opcode"],
+                          a["step_branch"], a["output_addrs"], words,
+                          n_addr=p.n_addr)
+    assert _k.launch_count() == before
+
+
+def test_launch_counts_by_variant():
+    before = (_k.launch_count("mega"), _k.launch_count("mega", "shared"),
+              _k.launch_count(variant="device"))
+    native.count_launch("mega", "shared")
+    native.count_launch("logic", "device")
+    assert (_k.launch_count("mega"), _k.launch_count("mega", "shared"),
+            _k.launch_count(variant="device")) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    with pytest.raises(ValueError, match="unknown kernel"):
+        native.count_launch("nope")
 
 
 def test_build_is_keyed_on_source_hash(tmp_path, monkeypatch):
@@ -209,9 +281,7 @@ def test_logic_kernel_matches_plain_on_card(cuda, n_unit, alloc, batch):
     np.testing.assert_array_equal(got, execute_program_np(p, x))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["chain", "parallel"])
-def test_mega_kernel_matches_plain_on_card(cuda, mode):
+def _mega(mode):
     rng = np.random.default_rng(4)
     if mode == "chain":
         graphs = [random_graph(rng, 8, 200, 6, locality=16),
@@ -225,13 +295,103 @@ def test_mega_kernel_matches_plain_on_card(cuda, mode):
         perm = np.array([4, 0, 3, 1, 2])
     progs = [compile_graph(gr, CompileSpec(n_unit=nu, optimize="none"))
              for gr, nu in zip(graphs, [8, 64, 16])]
-    mega = build_megaprogram(progs, mode=mode, output_perm=perm)
+    return build_megaprogram(progs, mode=mode, output_perm=perm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["chain", "parallel"])
+def test_mega_kernel_matches_plain_on_card(cuda, mode):
+    mega = _mega(mode)
     for batch in (1, 33, 70, 8192):
         x = _bits(batch, batch, 8)
         got = ops.mega_infer_bits(mega, x, device=cuda)
         np.testing.assert_array_equal(got, ops.mega_infer_bits(
             mega, x, device=cuda, use_ref=True))
         np.testing.assert_array_equal(got, execute_megaprogram_np(mega, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two_barriers", [False, True])
+@pytest.mark.parametrize("scratch", ["shared", "device"])
+@pytest.mark.parametrize("mode", ["chain", "parallel"])
+def test_scratch_variants_match_plain_on_card(cuda, mode, scratch,
+                                              two_barriers):
+    """Each scratch variant, with one barrier a step and with two, against
+    the plain version and the numpy oracle at batches 1, 33 and 8192,
+    counted under its variant."""
+    mega = _mega(mode)
+    m = ops.mega_arrays(mega, cuda)
+    launch = ops.launch_records(
+        mega.src_a, mega.src_b, mega.dst, mega.opcode, mega.step_branch,
+        n_addr=mega.n_addr, trash=mega.step_trash, device=cuda,
+        scratch=scratch, two_barriers=two_barriers)
+    assert launch["plan"].scratch == scratch
+    assert launch["plan"].one_barrier is not two_barriers
+    for batch in (1, 33, 8192):
+        x = _bits(batch, batch, 8)
+        words = ops.pack_bits(torch.from_numpy(x).to(cuda))
+        before = _k.launch_count("mega", scratch)
+        got = _k.mega_cuda_call(
+            launch["rec"], words, m["stage_table"], m["out_addrs"],
+            m["out_rows"], n_addr=mega.n_addr, n_outputs=mega.n_outputs,
+            chain=mode == "chain", handoff_rows=m["handoff_rows"],
+            plan=launch["plan"])
+        torch.cuda.synchronize()
+        assert _k.launch_count("mega", scratch) == before + 1
+        assert torch.equal(got, ops.mega_forward_words(mega, words,
+                                                       use_ref=True))
+        np.testing.assert_array_equal(ops.unpack_bits(got, batch).cpu()
+                                      .numpy(),
+                                      execute_megaprogram_np(mega, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two_barriers", [False, True])
+@pytest.mark.parametrize("scratch", ["shared", "device"])
+def test_scratch_variants_k1_on_card(cuda, scratch, two_barriers):
+    """K1 (mixed-opcode steps, liveness rows) in each variant."""
+    g = random_graph(np.random.default_rng(9), 8, 600, 6, unary_frac=0.2,
+                     locality=16)
+    p = compile_graph(g, CompileSpec(n_unit=64, opcode_sort=False,
+                                     optimize="none"))
+    a = ops.program_arrays(p, cuda)
+    launch = ops.launch_records(p.src_a, p.src_b, p.dst, p.opcode,
+                                p.step_branch, n_addr=p.n_addr,
+                                trash=p.trash_addr, device=cuda,
+                                scratch=scratch, two_barriers=two_barriers)
+    for batch in (1, 33, 8192):
+        x = _bits(batch + 1, batch, 8)
+        words = ops.pack_bits(torch.from_numpy(x).to(cuda))
+        streams = (a["src_a"], a["src_b"], a["dst"], a["opcode"],
+                   a["step_branch"], a["output_addrs"], words)
+        before = _k.launch_count("logic", scratch)
+        got = ops.forward_words(*streams, n_addr=p.n_addr, launch=launch)
+        torch.cuda.synchronize()
+        assert _k.launch_count("logic", scratch) == before + 1
+        assert torch.equal(got, ops.forward_words(*streams, n_addr=p.n_addr,
+                                                  use_ref=True))
+        np.testing.assert_array_equal(
+            ops.unpack_bits(got, batch).cpu().numpy(),
+            execute_program_np(p, x))
+
+
+@pytest.mark.cuda
+def test_program_too_large_for_shared_memory_on_card(cuda):
+    """A program past 2**16 rows takes the device-memory scratch by itself
+    and matches the plain version and the numpy oracle."""
+    g = random_graph(np.random.default_rng(2), 64, 66_000, 32,
+                     unary_frac=0.2, locality=256)
+    p = compile_graph(g, CompileSpec(n_unit=256, alloc="direct",
+                                     optimize="none"))
+    assert p.n_addr > _k.NARROW_ROWS
+    assert ops.program_arrays(p, cuda)["plan"].scratch == "device"
+    x = _bits(3, 100, 64)
+    before = _k.launch_count("logic", "device")
+    got = ops.logic_infer_bits(p, x, device=cuda)
+    assert _k.launch_count("logic", "device") == before + 1
+    np.testing.assert_array_equal(got, ops.logic_infer_bits(
+        p, x, device=cuda, use_ref=True))
+    np.testing.assert_array_equal(got, execute_program_np(p, x))
 
 
 @pytest.mark.cuda
@@ -246,7 +406,10 @@ def test_engine_one_launch_per_wave_on_card(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,n,k", [(1, 1, 1), (17, 4097, 33), (4097, 17, 100),
-                                   (64, 64, 2304), (8192, 120, 400)])
+                                   (64, 64, 2304), (8192, 120, 400),
+                                   (8193, 121, 400), (65, 129, 2304),
+                                   (16384 + 63, 256 + 7, 2304),
+                                   (100, 300, 416), (3, 5, 31)])
 def test_xnor_kernel_matches_plain_on_card(cuda, m, n, k):
     a = torch.from_numpy(_bits(m, m, k)).to(cuda)
     b = torch.from_numpy(_bits(n + 1, n, k)).to(cuda)
@@ -257,6 +420,7 @@ def test_xnor_kernel_matches_plain_on_card(cuda, m, n, k):
     assert _k.launch_count("xnor") == before + 1
     want = xnor_packed_ref(pack_pm1(a), pack_pm1(b), k)
     assert torch.equal(got, want)
+    assert torch.equal(got, xnor_and_popc_ref(pack_pm1(a), pack_pm1(b), k))
 
 
 @pytest.mark.cuda

@@ -22,7 +22,10 @@ from repro_torch.core.gate_ir import CONST1, LogicGraph, random_graph
 from repro_torch.core.scheduler import compile_graph, execute_program_np
 from repro_torch.core.spec import CompileSpec
 from repro_torch.kernels.logic_dsp import ops
-from repro_torch.kernels.logic_dsp.ref import (apply_opcode, apply_step,
+from repro_torch.kernels.logic_dsp.ref import (TRUTH_TABLES, apply_opcode,
+                                               apply_step, apply_truth_table,
+                                               decode_records,
+                                               logic_forward_records,
                                                logic_forward_ref)
 
 BATCHES = [1, 31, 32, 33, 70]
@@ -189,3 +192,138 @@ def test_bad_program_address_refused():
     words = ops.pack_bits(torch.from_numpy(_bits(7, 40, p.n_inputs - 1)))
     with pytest.raises(ValueError, match="input words"):
         ops.logic_forward(p, words)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's inputs: index records, truth tables, launch plans
+# ---------------------------------------------------------------------------
+
+def test_truth_tables_match_reference_opcodes():
+    """The kernel's branch-free op (bit 2x + y of the truth table is
+    op(x, y)) is the reference's opcode dispatch for every opcode."""
+    rng = np.random.default_rng(1)
+    a = rng.integers(-2 ** 31, 2 ** 31, (9, 6), dtype=np.int64).astype(np.int32)
+    b = rng.integers(-2 ** 31, 2 ** 31, (9, 6), dtype=np.int64).astype(np.int32)
+    op = np.arange(9, dtype=np.int32)[:, None]
+    tt = torch.tensor(TRUTH_TABLES, dtype=torch.int32)[:, None]
+    got = apply_truth_table(tt, torch.from_numpy(a), torch.from_numpy(b))
+    want = np.asarray(apply_opcode_jnp(jnp.asarray(op), jnp.asarray(a),
+                                       jnp.asarray(b)))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("scratch", ["shared", "device"])
+@pytest.mark.parametrize("alloc,sort", [("direct", True), ("liveness", True),
+                                        ("liveness", False)])
+def test_records_run_the_program_like_the_reference(scratch, alloc, sort):
+    """The kernel's arithmetic in plain PyTorch, from the packed (shared
+    variant) or wide (device variant) records, equals the reference's
+    Pallas kernel (interpret mode) and the numpy oracle, mixed-opcode
+    steps included."""
+    spec = dict(n_unit=16, alloc=alloc, opcode_sort=sort, optimize="none")
+    ref_p, p, g = _compile_both(11, spec, n_gates=300)
+    launch = ops.launch_records(p.src_a, p.src_b, p.dst, p.opcode,
+                                p.step_branch, n_addr=p.n_addr,
+                                trash=p.trash_addr, scratch=scratch)
+    assert launch["plan"].scratch == scratch
+    assert launch["rec"].shape == (p.n_steps, 16, 2 if scratch == "shared"
+                                   else 4)
+    x = _bits(11, 70, p.n_inputs)
+    words = ops.pack_bits(torch.from_numpy(x))
+    out = logic_forward_records(launch["rec"], words,
+                                torch.from_numpy(p.output_addrs), p.n_addr)
+    got = ops.unpack_bits(out, 70).numpy()
+    np.testing.assert_array_equal(got, ref_ops.logic_infer_bits(ref_p, x))
+    np.testing.assert_array_equal(got, execute_program_np(p, x))
+
+
+def test_packed_records_decode_to_the_streams():
+    _, p, _ = _compile_both(12, dict(n_unit=8, opcode_sort=False,
+                                     optimize="none"))
+    """Each step's records are its lanes, in a bank-spreading order."""
+    arrs = ops.program_arrays(p, "cpu")
+    rec = arrs["rec"]
+    assert arrs["plan"].scratch == "shared" and rec.shape[-1] == 2
+    op = np.where(p.step_branch[:, None] < 9, p.step_branch[:, None],
+                  p.opcode)
+    want = np.stack([p.src_a, p.src_b, p.dst, np.asarray(TRUTH_TABLES)[op]],
+                    axis=-1)
+    got = np.stack([x.numpy() for x in decode_records(rec)], axis=-1)
+    for s in range(p.n_steps):
+        assert sorted(map(tuple, got[s])) == sorted(map(tuple, want[s]))
+    wide = ops.launch_records(p.src_a, p.src_b, p.dst, p.opcode,
+                              p.step_branch, n_addr=p.n_addr,
+                              scratch="device")["rec"].numpy()
+    np.testing.assert_array_equal(wide, want)       # in the streams' order
+
+
+@pytest.mark.parametrize("cols", [1, 2, 4])
+def test_bank_order_spreads_rows_over_banks(cols):
+    """A permutation of every step's lanes whose wavefronts (32 // cols
+    lanes) hit fewer repeated bank groups than the streams' order."""
+    rng = np.random.default_rng(cols)
+    n_steps, n_unit, rows = 20, 96, 5000
+    a, b, d = (rng.integers(0, rows, (n_steps, n_unit)) for _ in range(3))
+    order = ops.bank_order(a, b, d, cols)
+    for s in range(n_steps):
+        assert sorted(order[s]) == list(range(n_unit))
+    width = 32 // cols
+
+    def conflicts(x):
+        return sum(np.bincount(w % width, minlength=width).max()
+                   for w in x.reshape(-1, width))
+
+    def total(o):
+        return sum(conflicts(np.take_along_axis(x, o, axis=1))
+                   for x in (a, b, d))
+    assert total(order) < 0.85 * total(np.tile(np.arange(n_unit),
+                                               (n_steps, 1)))
+
+
+def _one_step(src_a, src_b, dst, opcode):
+    arr = [np.asarray([row], dtype=np.int32)
+           for row in (src_a, src_b, dst, opcode)]
+    return (*arr, np.asarray([9], dtype=np.int32))      # a mixed step
+
+
+def test_same_step_alias_proof_on_a_hand_made_program():
+    """A step that reads and writes one row keeps both barriers; a read
+    that does not matter (a padding lane writing the trash row, the
+    second operand of NOT) does not count."""
+    trash = 9
+    # lane 1 writes row 4, which lane 0 reads in the same step
+    reads_written = _one_step([4, 2], [3, 3], [5, 4], [1, 2])
+    assert not ops.same_step_reads_free(*reads_written, trash=trash)
+    # rows read (2, 3) and written (4, 5) apart
+    assert ops.same_step_reads_free(*_one_step([2, 2], [3, 3], [4, 5],
+                                               [1, 2]), trash=trash)
+    # a padding lane (dst = trash) reads row 4 that lane 0 writes
+    pad = _one_step([2, 4], [3, 4], [4, trash], [1, 1])
+    assert ops.same_step_reads_free(*pad, trash=trash)
+    assert not ops.same_step_reads_free(*pad)          # trash unknown
+    # NOT ignores src_b; AND does not
+    assert ops.same_step_reads_free(*_one_step([2], [4], [4], [7]),
+                                    trash=trash)
+    assert not ops.same_step_reads_free(*_one_step([2], [4], [4], [1]),
+                                        trash=trash)
+    # NOP reads nothing
+    assert ops.same_step_reads_free(*_one_step([4], [4], [4], [0]),
+                                    trash=trash)
+    # reading the trash row where it matters is refused
+    assert not ops.same_step_reads_free(*_one_step([trash], [2], [4], [1]),
+                                        trash=trash)
+    # no steps: nothing to prove
+    empty = [np.zeros((0, 4), np.int32)] * 4 + [np.zeros(0, np.int32)]
+    assert ops.same_step_reads_free(*empty, trash=trash)
+
+
+@pytest.mark.parametrize("alloc", ["direct", "liveness"])
+def test_compiled_programs_take_one_barrier(alloc):
+    """The scheduler frees a row at its last reader's step + 1, so every
+    compiled program passes the proof; a launch's plan says so."""
+    for seed in range(4):
+        _, p, _ = _compile_both(20 + seed, dict(n_unit=8, alloc=alloc,
+                                                optimize="none"))
+        assert ops.same_step_reads_free(p.src_a, p.src_b, p.dst, p.opcode,
+                                        p.step_branch, p.trash_addr)
+        assert ops.program_arrays(p, "cpu")["plan"].one_barrier

@@ -22,6 +22,7 @@ from repro_torch.core.scheduler import (build_megaprogram, compile_graph,
                                         execute_megaprogram_np)
 from repro_torch.core.spec import CompileSpec
 from repro_torch.kernels.logic_dsp import ops
+from repro_torch.kernels.logic_dsp.ref import mega_forward_records
 
 
 def _bits(seed, batch, n):
@@ -118,3 +119,23 @@ def test_mega_forward_words_matches_reference():
         ops.mega_forward_words(mega, words).numpy(), want)
     np.testing.assert_array_equal(
         ops.mega_forward_words(mega, words, use_ref=True).numpy(), want)
+
+
+@pytest.mark.parametrize("case", sorted(MEGA_CASES))
+def test_mega_records_walk_matches_reference(case):
+    """The CUDA kernel's arithmetic for K2 in plain PyTorch (records of the
+    concatenated streams, truth-table ops, the stage walk with its
+    hand-off and permutation) equals the reference's Pallas megakernel;
+    every compiled pipeline passes the one-barrier proof."""
+    layout, mode, perm, n_units = MEGA_CASES[case]
+    ref_mega, mega, _ = _mega_pair(layout, mode, perm, n_units)
+    arrs = ops.mega_arrays(mega, "cpu")
+    assert arrs["plan"].scratch == "shared" and arrs["plan"].one_barrier
+    x = _bits(31, 45, mega.n_inputs)
+    words = ops.pack_bits(torch.from_numpy(x))
+    got = mega_forward_records(arrs["rec"], words, arrs["stage_table"],
+                               arrs["out_addrs"], arrs["out_rows"],
+                               mega.n_addr, mode == "chain")
+    want = np.asarray(ref_ops.mega_forward_words(
+        ref_mega, jnp.asarray(words.numpy())))
+    np.testing.assert_array_equal(got.numpy(), want)

@@ -15,8 +15,9 @@ import torch
 from repro.kernels.xnor_gemm import pack_pm1 as ref_pack_pm1
 from repro.kernels.xnor_gemm import xnor_gemm as ref_xnor_gemm
 from repro.kernels.xnor_gemm import xnor_gemm_ref as ref_xnor_gemm_ref
-from repro_torch.kernels.xnor_gemm import (pack_pm1, xnor_gemm,
-                                           xnor_gemm_ref, xnor_packed_ref)
+from repro_torch.kernels.xnor_gemm import (pack_pm1, xnor_and_popc_ref,
+                                           xnor_gemm, xnor_gemm_ref,
+                                           xnor_packed_ref)
 from repro_torch.kernels.xnor_gemm import kernel as _k
 
 # the reference test's shapes and TPU tiles (tests/test_kernels.py)
@@ -70,6 +71,32 @@ def test_xnor_gemm_equals_reference(m, n, k, tiles):
     np.testing.assert_array_equal(
         xnor_packed_ref(pack_pm1(ta), pack_pm1(tb), k).numpy(), want)
     np.testing.assert_array_equal(xnor_gemm_ref(ta, tb).numpy(), want)
+
+
+# Kw not a multiple of the kernel's 8-word k-step, LeNet-5 fc1's k 400
+# (Kw 13) and VGG16's 2304 (Kw 72) among them
+AND_POPC = [c[:3] for c in CASES] + [(9, 7, 400), (33, 65, 416), (5, 3, 31),
+                                     (70, 9, 2300), (3, 130, 288)]
+
+
+@pytest.mark.parametrize("m,n,k", AND_POPC,
+                         ids=[f"{m}x{n}x{k}" for m, n, k in AND_POPC])
+def test_and_popc_identity_equals_reference(m, n, k):
+    """The kernel's own arithmetic, popc(a ^ b) = popc(a) + popc(b) -
+    2 popc(a & b) on the packed words with zero words past k, equals the
+    plain twin, the port's oracle and the reference's Pallas kernel
+    (interpret mode) bit for bit; row 0 of A is all ones."""
+    a = _bits(5 * m + n + k, m, k)
+    b = _bits(m + 5 * n + k, n, k)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    ap, bp = pack_pm1(ta), pack_pm1(tb)
+    got = xnor_and_popc_ref(ap, bp, k)
+    pad = (-ap.shape[1]) % 8                   # to the kernel's k-step
+    padded = xnor_and_popc_ref(torch.nn.functional.pad(ap, (0, pad)),
+                               torch.nn.functional.pad(bp, (0, pad)), k)
+    want = np.asarray(ref_xnor_gemm(jnp.asarray(a), jnp.asarray(b)))
+    for x in (got, padded, xnor_packed_ref(ap, bp, k), xnor_gemm_ref(ta, tb)):
+        np.testing.assert_array_equal(x.numpy(), want)
 
 
 def test_k_mismatch_raises():
