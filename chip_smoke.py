@@ -31,8 +31,22 @@ stack, the engine), which must agree bit for bit; then the default
 (exact, enumerated) configuration, whose logic must keep the binarized
 model's accuracy exactly.
 
+Then the service around the engine.  ``calibrate``: the wall-clock
+calibration's probe grid measured on the card through the phase-split K1
+path, fitted, saved as the ``torch-cuda`` record and loaded back in a fresh
+process with no re-fit, the phase path bit-exact against the fused one and
+the oracle, and the ``n_unit`` the fit picks for fc1.  ``frontdoor``: a
+``FrontDoor`` with two tenants, fc1 and LeNet-5's ``fc2`` (120 -> 84,
+synthesized the same way from its own seed), at capacity 8192 with an
+artifact store behind it, driven by a light Poisson trace, a closed loop
+that finds the saturated rate, and a Poisson overload with faults injected,
+each tenant's program evicted and reloaded from the store between them.
+``warm_start``: fc1 and fc2 precompiled into a fresh store by the port's
+precompile tool and served from a fresh process with zero compiles.
+
 Output, one JSON object per line: ``env``, ``build``, ``parity``,
-``main_path``, ``timing``, ``engine``, ``xnor`` and ``flow``; then the
+``main_path``, ``timing``, ``engine``, ``xnor``, ``flow``, ``calibrate``,
+``frontdoor`` and ``warm_start``; then the
 card's name and power limit as nvidia-smi prints them; then a ``kernels``
 line (per kernel: its launches on the main paths, its largest difference
 from the plain version, its device time per call, the plain version's
@@ -46,8 +60,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -95,6 +112,23 @@ XNOR_PARITY = ([(64, 48, 100), (128, 128, 512), (17, 5, 33), (256, 64, 2304)]
 # fc1 above) and one full engine wave of validation samples
 FLOW_WIDTHS = dict(n_features=FANIN, hidden=(NEURONS, 84), n_classes=10)
 FLOW_TRAIN, FLOW_VAL = ISF_SAMPLES, CAPACITY
+# the calibration's probe grid as tools/calibrate.py runs it (--quick)
+CAL_BATCH, CAL_REPS = 1024, 5
+# the front door's second tenant, LeNet-5 fc2 (benchmarks/workloads.py:46)
+FC2_NEURONS = 84
+# request sizes as TrafficPattern draws them by default (geometric, mean
+# 24, at most 256), per-tenant inflight cap as the front-door example
+FD_SIZE_MEAN, FD_SIZE_MAX, FD_MAX_INFLIGHT = 24, 256, 8
+FD_DEADLINE_S = 2.0
+# the light trace offers FD_LIGHT_LOAD / L (L: one mean-size request's
+# latency alone), which one-at-a-time service already sustains; the
+# overload offers FD_OVERLOAD x R_sat (R_sat: the closed-loop completion
+# rate with every tenant at its inflight cap, an over-estimate of what
+# Poisson arrivals get), so it is an overload whatever batching does
+FD_LIGHT_LOAD, FD_LIGHT_REQUESTS = 0.2, 400
+FD_OVERLOAD, FD_OVERLOAD_REQUESTS = 4.0, 1200
+FD_SAT_S = 1.0
+FD_FAULTS = dict(seed=7, drop_rate=0.02, delay_rate=0.02, delay_s=0.002)
 
 
 def emit(obj: dict) -> None:
@@ -374,7 +408,8 @@ def run(args, torch) -> None:
     check(by_variant["logic/shared"] == launches["logic"] and
           by_variant["mega/shared"] == launches["mega"],
           f"the main path took the shared variant: {by_variant}")
-    check(bool((k1_out == artifact.execute(x_k1)).all()),
+    k1_oracle = artifact.execute(x_k1)
+    check(bool((k1_out == k1_oracle).all()),
           "K1 on the fc1 program matches the numpy oracle")
     main = {"phase": "main_path",
             "model": f"LeNet-5 fc1 ({FANIN} -> {NEURONS})",
@@ -566,8 +601,25 @@ def run(args, torch) -> None:
 
     xnor = xnor_phase(args, torch, dev, cuda_ms, smi)
     flow = flow_phase(torch, dev)
+    calib = calibrate_phase(torch, dev, smi, artifact, x_k1, k1_out,
+                            k1_oracle)
+    t0 = time.perf_counter()
+    frng = np.random.default_rng(args.seed + 1)
+    W2 = frng.normal(size=(NEURONS, FC2_NEURONS))
+    b2 = 0.1 * frng.normal(size=FC2_NEURONS)
+    x_isf2 = frng.integers(0, 2, (ISF_SAMPLES, NEURONS)).astype(np.uint8)
+    fc2 = layer_to_graph(x_isf2, W2, b2, mode="isf", name="lenet5_fc2")
+    fc2_synth_s = time.perf_counter() - t0
+    check(fc2.n_inputs == NEURONS and fc2.n_outputs == FC2_NEURONS,
+          "fc2 graph is NEURONS -> FC2_NEURONS")
+    tenants = {"fc1": graph, "fc2": fc2}
+    door = frontdoor_phase(args, torch, dev, smi, tenants, fc2_synth_s)
+    warm = warm_start_phase(args, smi, tenants,
+                            door["cold_first_request_s"])
     paths = {"fc1": launches, "xnor": xnor["launches"],
-             "flow": flow["launches"], "flow_default": flow["default"]["launches"]}
+             "flow": flow["launches"], "flow_default": flow["default"]["launches"],
+             "calibrate": calib["launches"], "frontdoor": door["launches"],
+             "warm_start": warm["launches"]}
     check(xnor["launches"]["xnor"] == len(XNOR_SHAPES),
           "xnor_gemm made one K3 launch per full-width call")
 
@@ -782,12 +834,518 @@ def summary(report) -> dict:
             "n_train": report.n_train, "n_val": report.n_val}
 
 
+def calibrate_phase(torch, dev, smi, artifact, x, fused, oracle) -> dict:
+    """The calibration phase path on the card: ``collect_probes`` over the
+    quick probe grid (15 programs, each through ``phased_infer_bits``, one
+    K1 launch a call), the fit saved to a store as this device's record and
+    loaded back in a fresh process with no re-fit; then the phase path on
+    fc1's program against the fused path and the oracle, and the ``n_unit``
+    the fit picks for fc1 (reported, not gated: it moves with timing
+    noise).  Launches are counted over the probes and those three calls."""
+    from repro_torch.core import calibrate
+    from repro_torch.core.artifact_store import ArtifactStore
+    from repro_torch.core.compiler import LogicCompiler
+    from repro_torch.core.spec import CompileSpec
+    from repro_torch.kernels.logic_dsp import kernel as K
+    from repro_torch.kernels.logic_dsp import ops
+    from repro_torch.tools import calibrate as calibrate_tool
+
+    graphs = calibrate.default_probe_graphs(quick=True)
+    units = calibrate.default_probe_units(quick=True)
+    prog = artifact.program
+    t0 = time.perf_counter()
+    K.reset_launch_counts()                     # calibrate path starts here
+    probes = calibrate.collect_probes(graphs, units,
+                                      n_input_vectors=CAL_BATCH,
+                                      reps=CAL_REPS, device=dev)
+    collect_s = time.perf_counter() - t0
+    phased, phases = ops.phased_infer_bits(prog, x, device=dev)
+    fused_again = ops.logic_infer_bits(prog, x, device=dev)
+    with calibrate.PhaseTimer() as timer:
+        timed = ops.logic_infer_bits(prog, x, device=dev)
+    torch.cuda.synchronize()
+    launches = {k: K.launch_count(k) for k in ("logic", "mega", "xnor")}
+    # calibrate path ends here
+    cal = calibrate.fit_calibration(probes, meta={
+        "grid": "quick", "device": torch.cuda.get_device_name(0),
+        "reps": CAL_REPS, "batch": CAL_BATCH, "n_probes": len(probes)})
+    name = ops.calibration_name(dev)
+    with tempfile.TemporaryDirectory(prefix="calibrate_",
+                                     dir=scratch_dir()) as d:
+        path = ArtifactStore(d).save_calibration(cal, name=name)
+        record = path.name
+        proc = calibrate_tool.verify(d, name, "cuda")
+    t1 = time.perf_counter()
+    pick, search = LogicCompiler(calibration=cal).resolve(
+        artifact.graph, CompileSpec(n_unit="auto", objective="wallclock"),
+        assume_optimized=True)
+    pick_s = time.perf_counter() - t1
+    fits = {p: {"coefs": list(f.coefs), "offset": f.offset,
+                "median_abs_rel_err": f.median_abs_rel_err}
+            for p, f in cal.fits.items()}
+    exact = {"phased_vs_fused": bool((phased == fused).all()),
+             "phased_vs_fused_again": bool((phased == fused_again).all()),
+             "timer_routed_vs_fused": bool((timed == fused).all()),
+             "phased_vs_oracle": bool((phased == oracle).all())}
+    out = {"phase": "calibrate", "nvidia_smi": smi, "programs": len(probes),
+           "grid": {"graphs": {k: g.n_gates for k, g in graphs.items()},
+                    "n_units": list(units), "batch": CAL_BATCH,
+                    "reps": CAL_REPS},
+           "collect_s": collect_s, "record": record,
+           "fresh_process": {"rc": proc.returncode,
+                             "stdout": proc.stdout.strip()[-300:],
+                             "stderr": proc.stderr.strip()[-600:]},
+           "median_abs_rel_err": cal.median_abs_rel_err(), "fits": fits,
+           "fc1_phases_ms": {p: v * 1e3 for p, v in phases.items()},
+           "timer_samples": len(timer.samples), "exact": exact,
+           "fc1_wallclock_pick": pick.n_unit,
+           "fc1_cycles_pick": search.alt.best_n_unit
+           if search.alt is not None else None,
+           "fc1_main_path_n_unit": prog.n_unit, "pick_s": pick_s,
+           "launches": launches}
+    emit(out)
+    check(len(probes) == len(graphs) * len(units) == 15,
+          "the quick grid is 15 programs")
+    check(all(math.isfinite(v) and v >= 0.0 for f in cal.fits.values()
+              for v in (*f.coefs, f.offset)),
+          "the fit's coefficients are finite and non-negative")
+    check(record == "torch-cuda.json", "the fit is saved as torch-cuda")
+    check(proc.returncode == 0 and "zero re-fits" in proc.stdout,
+          f"a fresh process loads the fit with no re-fit: {proc.stderr}")
+    check(all(exact.values()), f"the phase path is bit-exact: {exact}")
+    check(len(timer.samples) == 1 and
+          timer.samples[0]["meta"]["backend"] == "cuda",
+          "logic_infer_bits took the phase path under a PhaseTimer")
+    check(launches["logic"] == len(probes) * (1 + CAL_REPS) + 3 and
+          launches["mega"] == 0,
+          f"one K1 launch per phased call, no K2: {launches}")
+    return out
+
+
+async def drive_trace(door, trace, payloads) -> dict:
+    """Submit each request of ``trace`` through ``door.submit`` at its
+    trace time (its payload drawn beforehand), await every outcome, and
+    record offered, completions with their latencies and bits, sheds by
+    code, and when the first and the last request went in."""
+    import asyncio
+
+    from repro_torch.serve import RequestRejected
+
+    res = {"offered": len(trace), "completed": 0, "shed_by_code": {},
+           "deadline_missed": 0, "goodput_samples": 0, "latencies_s": [],
+           "served": []}
+
+    async def issue(req, bits):
+        t0 = time.monotonic()
+        try:
+            out = await door.submit(req.tenant, bits,
+                                    deadline_s=req.deadline_s,
+                                    priority=req.priority)
+        except RequestRejected as exc:
+            code = exc.reason.code
+            res["shed_by_code"][code] = res["shed_by_code"].get(code, 0) + 1
+            return
+        latency = time.monotonic() - t0
+        res["completed"] += 1
+        res["latencies_s"].append(latency)
+        res["served"].append((req.tenant, bits, out))
+        if latency > req.deadline_s:
+            res["deadline_missed"] += 1
+        else:
+            res["goodput_samples"] += len(bits)
+
+    # the trace's clock starts at its first arrival, which goes in at once
+    tasks, sent = [], []
+    start = time.monotonic() - trace[0].t
+    for req, bits in zip(trace, payloads):
+        delay = start + req.t - time.monotonic()
+        if delay > 0:
+            await asyncio.sleep(delay)
+        sent.append(time.monotonic())
+        tasks.append(asyncio.create_task(issue(req, bits)))
+    await asyncio.gather(*tasks)
+    res["elapsed_s"] = time.monotonic() - sent[0]
+    res["offered_span_s"] = sent[-1] - sent[0]
+    res["trace_span_s"] = trace[-1].t - trace[0].t
+    return res
+
+
+def trace_summary(res: dict, waves: int, deadline_s: float) -> dict:
+    """What one trace's run reports (everything but the served bits)."""
+    import numpy as np
+
+    lat = np.asarray(res["latencies_s"]) * 1e3
+    shed = sum(res["shed_by_code"].values())
+    return {"offered": res["offered"], "completed": res["completed"],
+            "shed": shed, "shed_rate": shed / max(1, res["offered"]),
+            "shed_by_code": dict(res["shed_by_code"]),
+            "shed_rate_by_code": {c: n / max(1, res["offered"])
+                                  for c, n in res["shed_by_code"].items()},
+            "deadline_s": deadline_s,
+            "deadline_missed": res["deadline_missed"],
+            "p50_ms": float(np.percentile(lat, 50)) if lat.size else None,
+            "p99_ms": float(np.percentile(lat, 99)) if lat.size else None,
+            "goodput_samples_per_s": res["goodput_samples"] /
+            res["elapsed_s"],
+            "elapsed_s": res["elapsed_s"],
+            "trace_span_s": res["trace_span_s"],
+            "offered_span_s": res["offered_span_s"],
+            "waves": waves,
+            "requests_per_wave": res["completed"] / max(1, waves)}
+
+
+def frontdoor_phase(args, torch, dev, smi, tenants, fc2_synth_s) -> dict:
+    """The front door on the card: two tenants (fc1, fc2) behind one
+    ``FrontDoor`` at capacity 8192 with an artifact store.  Load points
+    come from measurements: L, one mean-size request's latency alone; a
+    light Poisson trace at ``FD_LIGHT_LOAD / L``; R_sat, the closed-loop
+    completion rate at every tenant's inflight cap; a Poisson overload at
+    ``FD_OVERLOAD x R_sat`` with a seeded FaultPolicy (drops, delays).
+    Between the traces each tenant's program is evicted and reloaded from
+    the store.  Gated: bit-exact results, every request accounted for,
+    paced traces, the light trace's sheds, the overload's sheds and
+    injected drops, one K2 launch per wave, reloads with no compile.
+    Timings (latencies, idle share) are reported, not gated."""
+    import asyncio
+
+    import numpy as np
+
+    from repro_torch.core.artifact_store import ArtifactStore
+    from repro_torch.core.spec import CompileSpec
+    from repro_torch.kernels.logic_dsp import kernel as K
+    from repro_torch.serve import (SHED_CODES, FaultPolicy, FrontDoor,
+                                   TrafficPattern, build_trace)
+
+    rng = np.random.default_rng(args.seed + 5)
+    names = list(tenants)
+
+    def draw(name, n):
+        return rng.integers(0, 2, (n, tenants[name].n_inputs)).astype(bool)
+
+    def payloads(trace):
+        return [draw(r.tenant, r.n_samples) for r in trace]
+
+    def pattern(name, rate, n):
+        return TrafficPattern(tenant=name, rate_rps=rate, n_requests=n,
+                              size_mean=FD_SIZE_MEAN, size_max=FD_SIZE_MAX,
+                              deadline_s=FD_DEADLINE_S)
+
+    async def profiled(coro):
+        """Await ``coro`` under torch.profiler: its result plus wall time,
+        host CPU share and the device's busy time and idle share."""
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0, c0 = time.perf_counter(), time.process_time()
+            res = await coro
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            cpu = time.process_time() - c0
+        busy_us, by_name = device_busy(prof)
+        return res, {"wall_s": wall, "host_cpu_share": cpu / wall,
+                     "device_busy_ms": None if busy_us is None
+                     else busy_us / 1e3,
+                     "device_idle_share": None if busy_us is None
+                     else 1 - busy_us / 1e6 / wall,
+                     "device_ms_by_name": dict(by_name[:5])}
+
+    async def sequential(door, n):
+        """``n`` mean-size requests one after another, tenants in turn:
+        their latencies (s) and what they served."""
+        lat, served = [], []
+        for i in range(n):
+            name = names[i % len(names)]
+            bits = draw(name, FD_SIZE_MEAN)
+            t0 = time.perf_counter()
+            out = await door.submit(name, bits, deadline_s=60.0)
+            lat.append(time.perf_counter() - t0)
+            served.append((name, bits, out))
+        return lat, served
+
+    async def reload(door, served):
+        """Evict each tenant's program and submit again: the entry must
+        come back from the store, with no compile."""
+        cache, out = door.engine.cache, {}
+        for name in names:
+            before = cache.stats()
+            key = cache.get(tenants[name], door.engine.spec).key
+            check(cache.evict(key) == key, f"{name}: evicted")
+            bits = draw(name, FD_SIZE_MEAN)
+            t0 = time.perf_counter()
+            y = await door.submit(name, bits, deadline_s=60.0)
+            dt = time.perf_counter() - t0
+            served.append((name, bits, y))
+            after = cache.stats()
+            out[name] = {"reload_ms": dt * 1e3,
+                         "compiles": after["compiles"] - before["compiles"],
+                         "store_hits": after["store_hits"] -
+                         before["store_hits"]}
+        return out
+
+    async def saturate(door, served):
+        """Closed loop: every tenant keeps FD_MAX_INFLIGHT mean-size
+        requests outstanding for FD_SAT_S; completions per second."""
+        done, t_end = [0], time.monotonic() + FD_SAT_S
+        pools = {n: [draw(n, FD_SIZE_MEAN) for _ in range(64)]
+                 for n in names}
+
+        async def worker(name, k):
+            i = k
+            while time.monotonic() < t_end:
+                bits = pools[name][i % len(pools[name])]
+                i += FD_MAX_INFLIGHT
+                y = await door.submit(name, bits, deadline_s=60.0)
+                served.append((name, bits, y))
+                done[0] += 1
+
+        w0 = door.engine.invocations
+        t0 = time.monotonic()
+        await asyncio.gather(*(worker(n, k) for n in names
+                               for k in range(FD_MAX_INFLIGHT)))
+        elapsed = time.monotonic() - t0
+        waves = door.engine.invocations - w0
+        return {"completed": done[0], "elapsed_s": elapsed,
+                "r_sat_rps": done[0] / elapsed, "waves": waves,
+                "requests_per_wave": done[0] / max(1, waves)}
+
+    async def go(store_dir):
+        served = []
+        out = {}
+        door = FrontDoor(spec=CompileSpec(n_unit=256), capacity=CAPACITY,
+                         store=ArtifactStore(store_dir),
+                         default_deadline_s=FD_DEADLINE_S, device=dev)
+        for name in names:
+            door.register(name, tenants[name], max_inflight=FD_MAX_INFLIGHT)
+        async with door:
+            cold = {}
+            for name in names:          # compile + write-through
+                bits = draw(name, FD_SIZE_MEAN)
+                t0 = time.perf_counter()
+                y = await door.submit(name, bits, deadline_s=600.0)
+                cold[name] = time.perf_counter() - t0
+                served.append((name, bits, y))
+            out["cold_first_request_s"] = cold
+            _, warm_served = await sequential(door, 20)    # warm-up
+            served += warm_served
+            lat, seq_served = await sequential(door, 40)
+            served += seq_served
+            L = float(np.median(lat))
+            out["L_ms"] = L * 1e3
+            out["store_after_cold"] = door.engine.cache.stats()
+
+            light = build_trace([pattern(n, FD_LIGHT_LOAD / L / len(names),
+                                         FD_LIGHT_REQUESTS // len(names))
+                                 for n in names], seed=args.seed + 11)
+            light_bits = payloads(light)
+            w0 = door.engine.invocations
+            res, prof = await profiled(drive_trace(door, light, light_bits))
+            out["light"] = {**trace_summary(res,
+                                            door.engine.invocations - w0,
+                                            FD_DEADLINE_S),
+                            "rate_rps": FD_LIGHT_LOAD / L, **prof}
+            out["light_raw"] = res
+            out["reload_after_light"] = await reload(door, served)
+
+            out["saturated"] = await saturate(door, served)
+            out["reload_after_saturated"] = await reload(door, served)
+
+            r_sat = out["saturated"]["r_sat_rps"]
+            over = build_trace([pattern(n, FD_OVERLOAD * r_sat / len(names),
+                                        FD_OVERLOAD_REQUESTS // len(names))
+                                for n in names], seed=args.seed + 13)
+            over_bits = payloads(over)
+            policy = FaultPolicy(**FD_FAULTS)
+            door.fault_policy = policy
+            w0 = door.engine.invocations
+            res, prof = await profiled(drive_trace(door, over, over_bits))
+            door.fault_policy = None
+            out["overload"] = {**trace_summary(res,
+                                               door.engine.invocations - w0,
+                                               FD_DEADLINE_S),
+                               "rate_rps": FD_OVERLOAD * r_sat,
+                               "faults": dict(FD_FAULTS),
+                               "injected": dict(policy.injected), **prof}
+            out["overload_raw"] = res
+        out["served"] = served
+        out["waves"] = door.engine.invocations
+        out["cache"] = door.engine.cache.stats()
+        out["door_metrics"] = {k: v for k, v in door.metrics().items()
+                               if k != "engine"}
+        return out
+
+    t0 = time.perf_counter()
+    K.reset_launch_counts()                     # front-door path starts here
+    with tempfile.TemporaryDirectory(prefix="frontdoor_",
+                                     dir=scratch_dir()) as d:
+        r = asyncio.run(go(d))
+    torch.cuda.synchronize()
+    launches = {k: K.launch_count(k) for k in ("logic", "mega", "xnor")}
+    # front-door path ends here
+    wall_s = time.perf_counter() - t0
+    light_raw, over_raw = r.pop("light_raw"), r.pop("overload_raw")
+    served = r.pop("served") + light_raw["served"] + over_raw["served"]
+    t1 = time.perf_counter()
+    by_tenant = {}
+    for name, bits, y in served:
+        by_tenant.setdefault(name, []).append((bits, y))
+    exact = {}
+    for name, items in by_tenant.items():
+        x = np.concatenate([b for b, _ in items])
+        y = np.concatenate([o for _, o in items])
+        exact[name] = all(
+            bool((tenants[name].evaluate(x[lo:lo + 4096]) ==
+                  y[lo:lo + 4096]).all()) for lo in range(0, len(x), 4096))
+    oracle_s = time.perf_counter() - t1
+    out = {"phase": "frontdoor", "nvidia_smi": smi,
+           "tenants": {n: {"inputs": g.n_inputs, "outputs": g.n_outputs,
+                           "gates": g.n_gates} for n, g in tenants.items()},
+           "fc2_synth_s": fc2_synth_s, "capacity": CAPACITY,
+           "max_inflight": FD_MAX_INFLIGHT, "size_mean": FD_SIZE_MEAN,
+           **r, "results_checked": len(served), "exact": exact,
+           "oracle_s": oracle_s, "wall_s": wall_s, "launches": launches}
+    emit(out)
+    check(all(exact.values()), f"every served result is bit-exact: {exact}")
+    for trace in ("light", "overload"):
+        t = out[trace]
+        check(t["completed"] + t["shed"] == t["offered"],
+              f"{trace}: completed + shed == offered")
+        check(all(c in SHED_CODES for c in t["shed_by_code"]),
+              f"{trace}: every shed code is known: {t['shed_by_code']}")
+        check(t["offered_span_s"] >= 0.8 * t["trace_span_s"],
+              f"{trace}: the trace was paced ({t['offered_span_s']:.3f} s "
+              f"offered over a {t['trace_span_s']:.3f} s trace)")
+    light, over = out["light"], out["overload"]
+    check(light["offered"] >= 400 and over["offered"] >= 1200,
+          "the traces offer 400 and 1200 requests")
+    check(light["shed"] <= 0.01 * light["offered"],
+          f"the light trace sheds at most 1%: {light['shed_by_code']}")
+    check(over["shed"] > 0, "the overload sheds")
+    check(over["shed_by_code"].get("injected_drop", 0) ==
+          over["injected"]["drop"],
+          "every injected drop is shed as injected_drop")
+    check(launches["mega"] == out["waves"] > 0 and launches["logic"] == 0,
+          f"one K2 launch per wave ({launches['mega']} launches, "
+          f"{out['waves']} waves), no K1 launch")
+    for when in ("reload_after_light", "reload_after_saturated"):
+        for name, rl in out[when].items():
+            check(rl["compiles"] == 0 and rl["store_hits"] == 1,
+                  f"{when}: {name} came back from the store uncompiled")
+    return out
+
+
+#: The fresh process of the warm-start phase: a LogicEngine on the card over
+#: the precompiled store serves each graph once; it prints its counters.
+WARM_START_CHILD = r"""
+import json, sys, time
+import numpy as np
+import torch
+from repro_torch.core.artifact_store import ArtifactStore
+from repro_torch.core.gate_ir import LogicGraph
+from repro_torch.core.spec import CompileSpec
+from repro_torch.kernels.logic_dsp import kernel as K
+from repro_torch.serve import LogicEngine
+
+store_dir, graphs_npz, names = sys.argv[1], sys.argv[2], sys.argv[3]
+n_unit, capacity, seed, size = map(int, sys.argv[4:8])
+data = np.load(graphs_npz)
+engine = LogicEngine(CompileSpec(n_unit=n_unit), capacity=capacity,
+                     store=ArtifactStore(store_dir))
+rng = np.random.default_rng(seed)
+out = {"first_request_s": {}, "exact": {}}
+for name in names.split(","):
+    g = LogicGraph(n_inputs=int(data[name + "_n_inputs"]),
+                   gates=list(map(tuple, data[name + "_gates"].tolist())),
+                   outputs=data[name + "_outputs"].tolist(), name=name)
+    x = rng.integers(0, 2, (size, g.n_inputs)).astype(bool)
+    t0 = time.perf_counter()
+    y = engine.serve(g, x)
+    torch.cuda.synchronize()
+    out["first_request_s"][name] = time.perf_counter() - t0
+    out["exact"][name] = bool((y == g.evaluate(x)).all())
+st = engine.cache.stats()
+out.update(device=str(engine.device), compiles=st["compiles"],
+           store_hits=st["store_hits"], waves=engine.invocations,
+           launches={k: K.launch_count(k) for k in ("logic", "mega", "xnor")})
+print(json.dumps(out))
+"""
+
+
+def warm_start_phase(args, smi, tenants, cold_first_request_s) -> dict:
+    """Fleet warm start on the card: the port's precompile tool publishes
+    fc1 and fc2 into a fresh store, and a fresh process serves each once
+    from it.  Gated: zero compiles there, two store hits, bit-exact
+    results; the first request's time warm (store load) is reported beside
+    the front door's cold one (optimize + compile).  The launches are the
+    child's, read from its own counters."""
+    import numpy as np
+
+    from repro_torch.core.artifact_store import ArtifactStore
+    from repro_torch.core.spec import CompileSpec
+    from repro_torch.tools.precompile import precompile_graph
+
+    spec = CompileSpec(n_unit=256)
+    pre = {}
+    with tempfile.TemporaryDirectory(prefix="warm_start_",
+                                     dir=scratch_dir()) as d:
+        store = ArtifactStore(Path(d) / "store")
+        for name, g in tenants.items():
+            t0 = time.perf_counter()
+            key, art, compile_s = precompile_graph(store, g, spec, None)
+            pre[name] = {"seconds": time.perf_counter() - t0,
+                         "compile_s": compile_s, "key": key,
+                         "programs": len(art.programs)}
+        npz = Path(d) / "graphs.npz"
+        np.savez(npz, **{f"{n}_{k}": v for n, g in tenants.items()
+                         for k, v in (("n_inputs", np.int64(g.n_inputs)),
+                                      ("gates", np.asarray(g.gates,
+                                                           np.int64)),
+                                      ("outputs", np.asarray(g.outputs,
+                                                             np.int64)))})
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (str(SRC), env.get("PYTHONPATH")) if p)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", WARM_START_CHILD, str(store.root),
+             str(npz), ",".join(tenants), str(spec.n_unit), str(CAPACITY),
+             str(args.seed + 9), str(FD_SIZE_MEAN)],
+            env=env, capture_output=True, text=True, timeout=600)
+        child_s = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"the warm-start process ran: {proc.stderr[-2000:]}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    out = {"phase": "warm_start", "nvidia_smi": smi, "precompile": pre,
+           "child_s": child_s,
+           "child": child,
+           "first_request_ms": {
+               n: {"cold": cold_first_request_s[n] * 1e3,
+                   "warm": child["first_request_s"][n] * 1e3}
+               for n in tenants},
+           "launches": child["launches"]}
+    emit(out)
+    check(child["device"].startswith("cuda"), "the child served on the card")
+    check(child["compiles"] == 0 and child["store_hits"] == len(tenants),
+          f"zero compiles and {len(tenants)} store hits: {child}")
+    check(all(child["exact"].values()), "warm-start results are bit-exact")
+    check(child["launches"]["mega"] == child["waves"] == len(tenants) and
+          child["launches"]["logic"] == 0,
+          f"one K2 launch per warm wave: {child}")
+    return out
+
+
+def scratch_dir() -> Path:
+    """Where the phases' temporary stores live: the checkout's build/."""
+    d = ROOT / "build" / "chip_smoke"
+    d.mkdir(parents=True, exist_ok=True)
+    return d
+
+
 def traced(torch, fn):
     """Run ``fn`` under torch.profiler; returns the wall time (us), the
     union of the device's busy intervals (us; None when the trace holds no
-    device work) and device time by kernel name (ms).  The profiler's own
-    "Activity Buffer Request" spans are not device work and are left out."""
-    from torch.autograd import DeviceType
+    device work) and device time by kernel name (ms): see
+    :func:`device_busy`."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -796,6 +1354,16 @@ def traced(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us, by_name = device_busy(prof)
+    return wall_us, busy_us, by_name
+
+
+def device_busy(prof):
+    """The union of the device's busy intervals in a profiler trace (us;
+    None when it holds no device work) and device time by kernel name
+    (ms, largest first).  The profiler's own "Activity Buffer Request"
+    spans are not device work and are left out."""
+    from torch.autograd import DeviceType
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events() if e.device_type == DeviceType.CUDA
                    and e.name != "Activity Buffer Request")
@@ -812,7 +1380,7 @@ def traced(torch, fn):
                       if a.self_device_time_total > 0
                       and a.key != "Activity Buffer Request"),
                      key=lambda kv: -kv[1])
-    return wall_us, busy_us if spans else None, by_name
+    return (busy_us if spans else None), by_name
 
 
 def profile_waves(torch, serve_all) -> dict:

@@ -1,6 +1,5 @@
-# Copied from src/repro/core/calibrate.py without measure_program_phases and
-# collect_probes (they drive the phase-split kernel path); otherwise only the
-# repro imports differ.
+# Copied from src/repro/core/calibrate.py; the repro imports, PAD_UNIT and
+# the measurement helpers' device argument (in place of interpret) differ.
 """Measurement-calibrated wall-clock cost model (DESIGN.md §12).
 
 The eq. 22/23 model (core/cost_model.py) counts *cycles* and predicts
@@ -89,7 +88,7 @@ FORMAT_VERSION = 1
 #: ``ceil(u / PAD_UNIT) * PAD_UNIT``, and the kernel phase's width
 #: regressor must use the padded width or the fit systematically
 #: under-predicts unaligned unit counts.
-PAD_UNIT = 8
+PAD_UNIT = 1  # the port's kernel pads no lanes (kernels/logic_dsp/ops.py)
 
 
 class CalibrationError(RuntimeError):
@@ -449,6 +448,28 @@ class WallClockModel:
 # measurement helpers (lazy jax / scheduler imports)
 # ---------------------------------------------------------------------------
 
+def measure_program_phases(prog, n_input_vectors: int, reps: int = 3,
+                           seed: int = 0, *,
+                           device=None) -> dict[str, float]:
+    """Min-over-reps seconds per phase for one compiled program.
+
+    Warms the phased runner first (trace + compile excluded), then takes
+    the per-phase minimum over ``reps`` timed executions — the noise
+    floor on a shared host, which is what the calibration should map the
+    model regressors onto."""
+    from repro_torch.kernels.logic_dsp.ops import phased_infer_bits
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 2, size=(n_input_vectors, prog.n_inputs))
+    bits = bits.astype(bool)
+    phased_infer_bits(prog, bits, device=device)          # warm
+    best = {p: math.inf for p in PHASES}
+    for _ in range(max(1, reps)):
+        _, phases = phased_infer_bits(prog, bits, device=device)
+        for p in PHASES:
+            best[p] = min(best[p], phases[p])
+    return best
+
+
 def default_probe_graphs(quick: bool = True, seed: int = 2024) -> dict:
     """The seeded calibration workload grid (shared by the benchmark
     harness, the CLI, and tests — same seed, same graphs)."""
@@ -470,3 +491,49 @@ def default_probe_units(quick: bool = True) -> tuple[int, ...]:
     three the per-step vs slab-width split of the kernel fit is barely
     conditioned and the resulting picks drift outside the DSE gate."""
     return (8, 16, 32, 64, 128) if quick else (8, 16, 32, 64, 128, 256)
+
+
+def collect_probes(graphs: dict, n_units, n_input_vectors: int = 1024,
+                   model: CostModel | None = None, reps: int = 3,
+                   *, device=None) -> list[PhaseProbe]:
+    """Compile and measure every (workload, n_unit) grid point.
+
+    Probes compile with ``optimize="none"`` (the grid graphs are the
+    workload — the fit must see exactly the closed-form stats the DSE
+    will probe) and use ``FfclStats.from_graph`` regressors, the same
+    eq. 23 path ``WallClockModel`` predicts with.
+
+    All grid points are measured INTERLEAVED: every program is compiled
+    and trace-warmed up front, then ``reps`` round-robin passes take one
+    timed execution per point each, keeping the per-phase minimum.
+    Measuring points sequentially (all reps of one point, then the next)
+    lets slow host drift over the collection window masquerade as
+    ``n_unit`` dependence and visibly destabilizes the fitted
+    coefficients run-to-run.
+    """
+    from repro_torch.core.scheduler import compile_graph
+    from repro_torch.core.spec import CompileSpec
+    from repro_torch.kernels.logic_dsp.ops import phased_infer_bits
+    model = model or CostModel()
+    rng = np.random.default_rng(0)
+    grid = []
+    for label, g in graphs.items():
+        stats = FfclStats.from_graph(g)
+        bits = rng.integers(0, 2, (n_input_vectors, g.n_inputs))
+        bits = bits.astype(bool)
+        for u in n_units:
+            prog = compile_graph(g, CompileSpec(n_unit=int(u),
+                                                optimize="none"))
+            phased_infer_bits(prog, bits, device=device)    # warm
+            grid.append((label, g, stats, int(u), prog, bits,
+                         {p: math.inf for p in PHASES}))
+    for _ in range(max(1, reps)):
+        for _, _, _, _, prog, bits, best in grid:
+            _, phases = phased_infer_bits(prog, bits, device=device)
+            for p in PHASES:
+                best[p] = min(best[p], phases[p])
+    return [PhaseProbe(label=label, n_unit=u,
+                       n_input_vectors=n_input_vectors, n_gates=g.n_gates,
+                       terms=phase_terms(model, stats, u, n_input_vectors),
+                       measured=dict(best))
+            for label, g, stats, u, _, _, best in grid]

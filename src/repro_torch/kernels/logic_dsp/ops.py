@@ -16,12 +16,17 @@ device, beside what the CUDA kernel reads instead (:func:`launch_records`:
 one index record per lane and step, and the launch plan: scratch variant,
 columns per block, record ring, and whether a step needs one barrier or
 two).  The kernel takes any ``n_unit``, so the lanes are not padded.
+:func:`phased_infer_bits` is the calibration's measurement path: one
+inference split into pack / setup / kernel / unpack, fenced on the card.
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 
+from repro_torch.core import calibrate as _calibrate
 from repro_torch.core.gate_ir import MIXED_DISPATCH
 from repro_torch.core.scheduler import LogicProgram, MegaProgram
 from repro_torch.kernels.logic_dsp import kernel as _k
@@ -46,6 +51,18 @@ def resolve_device(device=None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+#: The calibration record each device type's wall-clock fit is saved and
+#: loaded under.  The reference's ``"default"`` record holds a TPU's or a
+#: JAX-on-CPU fit, which says nothing about this port's phases.
+CALIBRATION_NAMES = {"cuda": "torch-cuda", "cpu": "torch-cpu"}
+
+
+def calibration_name(device=None) -> str:
+    """The calibration record for ``device`` (CUDA unless the caller names
+    the CPU): ``"torch-cuda"`` or ``"torch-cpu"``."""
+    return CALIBRATION_NAMES[resolve_device(device).type]
 
 
 # ---------------------------------------------------------------------------
@@ -331,11 +348,112 @@ def logic_forward(prog: LogicProgram, input_words: torch.Tensor,
 def logic_infer_bits(prog: LogicProgram, bits, device=None,
                      use_ref: bool = False) -> np.ndarray:
     """Boolean convenience wrapper: (batch, n_inputs) -> (batch, n_outputs)
-    numpy bool, packed, executed and unpacked on ``device``."""
+    numpy bool, packed, executed and unpacked on ``device``.
+
+    While a :class:`~repro_torch.core.calibrate.PhaseTimer` is active the
+    call routes through :func:`phased_infer_bits` and records its
+    per-phase split on the timer; otherwise the check is one module
+    attribute read."""
     dev = resolve_device(device)
+    timer = _calibrate._ACTIVE
+    if timer is not None:
+        out, phases = phased_infer_bits(prog, bits, dev, use_ref=use_ref)
+        timer.record(phases, backend="ref" if use_ref or dev.type == "cpu"
+                     else "cuda", n_unit=prog.n_unit, batch=out.shape[0])
+        return out
     x = _bits_tensor(bits, dev)
     out = logic_forward(prog, pack_bits(x), use_ref=use_ref)
     return unpack_bits(out, x.shape[0]).cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# phase-split execution (the calibration measurement path)
+# ---------------------------------------------------------------------------
+
+def _phase_host_arrays(prog: LogicProgram, plain: bool) -> dict:
+    """Host tensors of what the executor reads, memoized on the program
+    object: the streams for the plain version, the launch records and
+    output addresses for the kernel (with the records' ``plan``).  The
+    phased path uploads them anew on each call, so ``setup`` times a real
+    transfer, while the records themselves (lane order, one-barrier
+    proof) are built once."""
+    memo = _memo(prog)
+    key = ("phase_host", plain)
+    if key not in memo:
+        host = {k: np.ascontiguousarray(getattr(prog, k), dtype=np.int32)
+                for k in ("src_a", "src_b", "dst", "opcode", "step_branch",
+                          "output_addrs")}
+        _check_addresses(prog.n_addr, src_a=host["src_a"],
+                         src_b=host["src_b"], dst=host["dst"],
+                         output_addrs=host["output_addrs"])
+        if plain:
+            memo[key] = {k: torch.from_numpy(v) for k, v in host.items()}
+        else:
+            launch = launch_records(
+                host["src_a"], host["src_b"], host["dst"], host["opcode"],
+                host["step_branch"], n_addr=prog.n_addr,
+                trash=prog.trash_addr, device="cpu")
+            memo[key] = {"rec": launch["rec"], "plan": launch["plan"],
+                         "output_addrs": torch.from_numpy(
+                             host["output_addrs"])}
+    return memo[key]
+
+
+def phased_infer_bits(prog: LogicProgram, bits, device=None,
+                      use_ref: bool = False
+                      ) -> tuple[np.ndarray, dict[str, float]]:
+    """One inference split into the four calibration phases.
+
+    Returns ``(out, phases)`` where ``phases`` maps each of
+    ``core.calibrate.PHASES`` to seconds; on CUDA each boundary is fenced
+    by ``torch.cuda.synchronize``, so no phase's work runs on into the
+    next:
+
+        pack    H2D of the boolean batch + :func:`pack_bits`
+        setup   a fresh H2D of what the executor reads: the launch
+                records and output addresses for the kernel, the streams
+                for the plain version (what the memoized path amortizes)
+        kernel  the program execution over packed words (one K1 launch
+                on CUDA)
+        unpack  :func:`unpack_bits` + D2H of the result
+
+    The output is bit-identical to :func:`logic_infer_bits`'s (the same
+    executor on the same words); ``device`` and ``use_ref`` pick it the
+    same way.
+    """
+    dev = resolve_device(device)
+    plain = use_ref or dev.type == "cpu"
+    host = _phase_host_arrays(prog, plain)
+
+    def fence() -> None:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    t = time.perf_counter
+    t0 = t()
+    x = _bits_tensor(bits, dev)
+    words = pack_bits(x)
+    _check_rows(words, prog.n_inputs)
+    fence()
+    t1 = t()
+    s = {k: v.to(dev, copy=True) for k, v in host.items() if k != "plan"}
+    fence()
+    t2 = t()
+    if plain:
+        out_words = logic_forward_ref(
+            s["src_a"], s["src_b"], s["dst"], s["opcode"], words,
+            s["output_addrs"], prog.n_addr, step_branch=s["step_branch"])
+    else:
+        out_words = _k.logic_cuda_call(s["rec"], words, s["output_addrs"],
+                                       n_addr=prog.n_addr,
+                                       plan=host["plan"])
+    fence()
+    t3 = t()
+    out = unpack_bits(out_words, x.shape[0]).cpu().numpy()
+    t4 = t()
+    phases = {"pack": t1 - t0, "setup": t2 - t1, "kernel": t3 - t2,
+              "unpack": t4 - t3}
+    return out, phases
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
-# CompiledEntry, ProgramCache, LogicRequest and _Chunk are copied verbatim
-# from src/repro/serve/logic_engine.py (only the imports differ);
-# LogicEngine is its PyTorch port on one CUDA device.
+# CompiledEntry, ProgramCache, LogicRequest and _Chunk are copied from
+# src/repro/serve/logic_engine.py (only the imports and ProgramCache's
+# calibration record, named by device, differ); LogicEngine is its PyTorch
+# port on one CUDA device.
 """Batched serving engine for compiled logic programs (``LogicEngine``).
 
 Three layers, as in the reference package:
@@ -33,6 +34,7 @@ import threading
 import time
 import warnings
 from collections import OrderedDict, deque
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Callable
 
@@ -48,10 +50,34 @@ from repro_torch.core.packing import WORD_BITS
 from repro_torch.core.scheduler import LogicProgram, compile_graph
 from repro_torch.core.spec import CompileSpec, resolve_spec, _UNSET
 from repro_torch.core.verify import effective_mode, verify_artifact
-from repro_torch.kernels.logic_dsp.ops import (mega_arrays,
+from repro_torch.kernels.logic_dsp.ops import (calibration_name, mega_arrays,
                                                mega_forward_words, pack_bits,
                                                resolve_device, unpack_bits)
 from repro_torch.serve.batcher import SlotTable
+
+
+# ---------------------------------------------------------------------------
+# device scope of a worker thread
+# ---------------------------------------------------------------------------
+
+def current_stream(device: torch.device):
+    """The CUDA stream the calling thread queues ``device``'s work on, or
+    None for the CPU."""
+    return torch.cuda.current_stream(device) if device.type == "cuda" \
+        else None
+
+
+@contextmanager
+def device_scope(device: torch.device, stream=None):
+    """Run the block with ``device`` current and, on CUDA, ``stream``
+    current on it.  A new thread starts on CUDA device 0 and its default
+    stream whatever its creator had, so a thread that serves a caller's
+    engine enters this with the caller's device and stream."""
+    if device.type != "cuda":
+        yield
+        return
+    with torch.cuda.device(device), torch.cuda.stream(stream):
+        yield
 
 
 # ---------------------------------------------------------------------------
@@ -161,7 +187,7 @@ class ProgramCache:
 
     def __init__(self, max_entries: int | None = None,
                  compiler: LogicCompiler | None = None,
-                 store: ArtifactStore | None = None):
+                 store: ArtifactStore | None = None, device=None):
         self.max_entries = max_entries
         self.compiler = compiler or LogicCompiler()
         # Optional durable backing (core/artifact_store.py): an
@@ -210,15 +236,17 @@ class ProgramCache:
         self.verify_failures = 0    # verifier-rejected loads: quarantined,
         #                             recompiled (DESIGN.md §13)
         # Warm-start the wall-clock calibration too: a compiler with no
-        # fitted calibration picks up the store's persisted "default"
-        # fit, so a fresh process can serve objective="wallclock" specs
+        # fitted calibration picks up the store's persisted fit for the
+        # device its engines run on (``ops.calibration_name``), so a
+        # fresh process can serve objective="wallclock" specs
         # with zero re-fits (fit_count() == 0 — same contract as the
         # zero-compile warm start).  Best-effort: a corrupt record is
         # quarantined at the store layer and serving degrades to the
         # cycles objective (see :meth:`_resolved`).
         if store is not None and self.compiler.calibration is None:
             try:
-                self.compiler.calibration = store.load_calibration()
+                self.compiler.calibration = store.load_calibration(
+                    calibration_name(device))
             except PermanentCompileError as exc:
                 self.store_failures += 1
                 warnings.warn(
@@ -671,7 +699,6 @@ class _Chunk:
         return self.hi - self.lo
 
 
-
 # ---------------------------------------------------------------------------
 # the engine
 # ---------------------------------------------------------------------------
@@ -731,7 +758,7 @@ class LogicEngine:
                 "ArtifactStore to the shared ProgramCache at its own "
                 "construction instead")
         self.cache = cache if cache is not None else \
-            ProgramCache(max_programs, store=store)
+            ProgramCache(max_programs, store=store, device=self.device)
 
         if capacity is None:
             capacity = WORD_BITS * words_per_device

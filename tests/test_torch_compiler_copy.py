@@ -1,12 +1,15 @@
 """Drift guard for the port's copies of the reference's numpy modules.
 
 The copies are verbatim apart from their import lines (the compiler under
-``repro_torch.core``, the simulator, the flow's layer conversion), or
-verbatim function by function where the port keeps only part of a module
-or ports the rest to PyTorch.  Both packages must produce the same
-schedule for the same graph, array by array: "one scheduler, one
-schedule" holds in substance even though the port imports nothing of
-``repro``.
+``repro_torch.core``, the simulator, the flow's layer conversion, the
+front door and its traffic generator), or verbatim function by function
+where the port keeps only part of a module or ports the rest to PyTorch;
+the few lines where a copy must differ (a device in place of the TPU's
+interpret flag, the calibration record named by device) are listed here
+as reference -> port substitutions, so every other line stays guarded.
+Both packages must produce the same schedule for the same graph, array by
+array: "one scheduler, one schedule" holds in substance even though the
+port imports nothing of ``repro``.
 """
 import re
 from pathlib import Path
@@ -35,36 +38,111 @@ COPIED_DEFS = {
                       "layer_to_graph", "LogicNetwork", "BinaryMLPConfig"),
     "flow/classifier": ("input_bits", "hard_forward"),
     "flow/report": ("FlowConfig", "EndToEndReport"),
+    "serve/logic_engine": ("_resolve_cache_spec", "CompiledEntry",
+                           "LogicRequest", "_Chunk"),
 }
-# partial copies that differ from the reference in these lines alone
-# (reference text -> port text): they take the parameters to the host, so
-# torch tensors on the card convert as they are
+# copies that differ from the reference in these lines alone (reference
+# text -> port text), each definition as a whole; in a module of COPIED
+# the rest of the file stays verbatim too
 ADAPTED_DEFS = {
+    # they take the parameters to the host, so torch tensors on the card
+    # convert as they are
     ("core/nullanet", "mlp_to_logic_network"): [
         ("params_np = {k: np.asarray(v) for k, v in params.items()}",
          "params_np = host_params(params)")],
     ("flow/classifier", "build_classifier"): [
         ("alloc=alloc, optimize=optimize)\n",
          "alloc=alloc, optimize=optimize)\n    params = host_params(params)\n")],
+    # the port's kernel runs exactly n_unit lanes a step (no sublane
+    # padding), so the fit's width regressor takes the unpadded width
+    ("core/calibrate", "PAD_UNIT"): [
+        ("PAD_UNIT = 8",
+         "PAD_UNIT = 1  # the port's kernel pads no lanes "
+         "(kernels/logic_dsp/ops.py)")],
+    # the measurement helpers run on a torch device (the card unless
+    # "cpu"), where the reference picks Pallas interpret mode
+    ("core/calibrate", "measure_program_phases"): [
+        ("                           interpret: bool = True)",
+         "                           device=None)"),
+        ("phased_infer_bits(prog, bits, interpret=interpret)          # warm",
+         "phased_infer_bits(prog, bits, device=device)          # warm"),
+        ("_, phases = phased_infer_bits(prog, bits, interpret=interpret)",
+         "_, phases = phased_infer_bits(prog, bits, device=device)")],
+    ("core/calibrate", "collect_probes"): [
+        ("*, interpret: bool = True)", "*, device=None)"),
+        ("phased_infer_bits(prog, bits, interpret=interpret)    # warm",
+         "phased_infer_bits(prog, bits, device=device)    # warm"),
+        ("_, phases = phased_infer_bits(prog, bits, interpret=interpret)",
+         "_, phases = phased_infer_bits(prog, bits, device=device)")],
+    # the calibration warm start loads this device's record ("torch-cuda"
+    # or "torch-cpu"), never the reference's "default" (a TPU's fit)
+    ("serve/logic_engine", "ProgramCache"): [
+        ("store: ArtifactStore | None = None):",
+         "store: ArtifactStore | None = None, device=None):"),
+        ("""persisted "default"
+        # fit, so a fresh process""",
+         """persisted fit for the
+        # device its engines run on (``ops.calibration_name``), so a
+        # fresh process"""),
+        ("store.load_calibration()",
+         "store.load_calibration(\n                    calibration_name(device))")],
 }
 IMPORT = re.compile(r"^(\s*)(from|import) repro\.", re.M)
-# calibrate's measurement helpers drive the phase-split kernel path, which
-# the port does not have yet
-LEFT_OUT = {"core/calibrate": ("def measure_program_phases(",
-                               "def collect_probes(")}
+# ports guarded line by line against their reference module, import
+# statements left out, with these device adaptations (reference text ->
+# port text): the door's engine takes the door's device, and the executor
+# thread that steps it runs under that device and the constructing
+# thread's stream (a new thread starts on device 0 and its default stream)
+SERVE_COPIES = {
+    "serve/traffic": [],
+    "serve/frontdoor": [
+        ("""      spec / capacity / store: engine construction knobs when ``engine``
+        is omitted (``store``""",
+         """      spec / capacity / store / device: engine construction knobs when
+        ``engine`` is omitted (``device``: where it runs, CUDA unless
+        ``"cpu"``; ``store``"""),
+        ("dispatch_batch: int = 16):", "dispatch_batch: int = 16, device=None):"),
+        ("LogicEngine(spec, capacity=capacity, store=store)\n",
+         "LogicEngine(spec, capacity=capacity, store=store, device=device)\n"
+         "        # the executor thread that steps the engine takes this "
+         "device and\n"
+         "        # the constructing thread's stream on it (see _step)\n"
+         "        self._stream = current_stream(self.engine.device)\n"),
+        ("        finished = self.engine.step()\n",
+         "        with device_scope(self.engine.device, self._stream):\n"
+         "            finished = self.engine.step()\n")],
+}
 
 STREAMS = ("src_a", "src_b", "dst", "opcode", "step_branch", "output_addrs")
 MEGA = ("src_a", "src_b", "dst", "opcode", "step_branch", "step_trash",
         "out_addrs", "output_perm")
 
 
-def _strip_functions(text, starts):
-    for start in starts:
-        a = text.index(start)
-        nxt = re.search(r"^def |^class ", text[a + 1:], re.M)
-        b = len(text) if nxt is None else a + 1 + nxt.start()
-        text = text[:a] + text[b:]
+def _substitute(text: str, subs, where: str) -> str:
+    for old, new in subs:
+        assert text.count(old) == 1, f"{where}: {old!r} left the reference"
+        text = text.replace(old, new)
     return text
+
+
+def _drop_source_note(text: str) -> str:
+    lines = text.splitlines(keepends=True)
+    while lines and lines[0].startswith("#"):
+        lines.pop(0)
+    return "".join(lines)
+
+
+def _without_imports(text: str) -> list[str]:
+    """The module's lines without its top-level import statements (their
+    parenthesized continuations included)."""
+    out, open_parens = [], 0
+    for line in text.splitlines():
+        if open_parens or line.startswith(("import ", "from ")):
+            open_parens = max(0, open_parens + line.count("(")
+                              - line.count(")"))
+            continue
+        out.append(line)
+    return out
 
 
 def _top_level_defs(text: str) -> dict[str, str]:
@@ -84,13 +162,23 @@ def _top_level_defs(text: str) -> dict[str, str]:
 def test_copy_is_verbatim_but_for_imports(name):
     ref = (ROOT / "src" / "repro" / f"{name}.py").read_text()
     port = (ROOT / "src" / "repro_torch" / f"{name}.py").read_text()
-    lines = port.splitlines(keepends=True)
-    while lines and lines[0].startswith("#"):       # the source note
-        lines.pop(0)
-    port = "".join(lines)
+    port = _drop_source_note(port)
     want = IMPORT.sub(r"\1\2 repro_torch.", ref)
-    want = _strip_functions(want, LEFT_OUT.get(name, ()))
+    defs = _top_level_defs(want)
+    for (module, defn), subs in ADAPTED_DEFS.items():
+        if module == name:
+            want = want.replace(defs[defn], _substitute(
+                defs[defn], subs, f"{name}.{defn}"))
     assert port.rstrip() == want.rstrip()
+
+
+@pytest.mark.parametrize("name", sorted(SERVE_COPIES))
+def test_serve_port_matches_reference_line_by_line(name):
+    ref = (ROOT / "src" / "repro" / f"{name}.py").read_text()
+    port = (ROOT / "src" / "repro_torch" / f"{name}.py").read_text()
+    want = _without_imports(_substitute(ref, SERVE_COPIES[name], name))
+    got = _without_imports(_drop_source_note(port))
+    assert got == want
 
 
 @pytest.mark.parametrize("name,defs", sorted(COPIED_DEFS.items()))
@@ -109,10 +197,8 @@ def test_adapted_copy_differs_only_in_its_named_lines(name, defn):
     ref = IMPORT.sub(r"\1\2 repro_torch.",
                      (ROOT / "src" / "repro" / f"{name}.py").read_text())
     port = (ROOT / "src" / "repro_torch" / f"{name}.py").read_text()
-    want = _top_level_defs(ref)[defn]
-    for old, new in ADAPTED_DEFS[name, defn]:
-        assert want.count(old) == 1, f"{name}: {old!r} left the reference"
-        want = want.replace(old, new)
+    want = _substitute(_top_level_defs(ref)[defn], ADAPTED_DEFS[name, defn],
+                       f"{name}.{defn}")
     assert _top_level_defs(port)[defn] == want
 
 

@@ -7,10 +7,15 @@ The CUDA kernel wrappers refuse CPU tensors.  Tests that need the card are
 marked ``cuda`` and skip without one (decided inside the test, never at
 import).
 """
+import asyncio
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.artifact_store import ArtifactStore
+from repro_torch.core.calibrate import (PHASES, PhaseTimer,
+                                        measure_program_phases)
 from repro_torch.core.gate_ir import LogicGraph, random_graph
 from repro_torch.core.scheduler import (build_megaprogram, compile_graph,
                                         execute_megaprogram_np,
@@ -26,7 +31,7 @@ from repro_torch.kernels.logic_dsp import ops
 from repro_torch.kernels.xnor_gemm import (pack_pm1, xnor_and_popc_ref,
                                            xnor_gemm, xnor_packed_ref)
 from repro_torch.kernels.xnor_gemm import kernel as _xk
-from repro_torch.serve import LogicEngine
+from repro_torch.serve import FrontDoor, LogicEngine, ProgramCache
 
 
 def _prog(seed=0, n_unit=8, n_gates=120, alloc="liveness"):
@@ -67,9 +72,23 @@ def test_resolve_device_defaults_to_cuda_and_raises_without_it(no_cuda):
         ops.resolve_device("meta")
 
 
+def _door_round(g, x, **kw):
+    """One request through a fresh one-tenant FrontDoor."""
+    async def go():
+        async with FrontDoor(spec=CompileSpec(n_unit=8), capacity=64,
+                             default_deadline_s=60.0, **kw) as door:
+            door.register("t", g)
+            return await door.submit("t", x)
+    return asyncio.run(asyncio.wait_for(go(), timeout=120))
+
+
 @pytest.mark.parametrize("entry", ["logic_infer_bits", "mega_infer_bits",
-                                   "engine", "program_arrays"])
-def test_entry_points_raise_without_cuda_unless_cpu(no_cuda, entry):
+                                   "engine", "program_arrays",
+                                   "phased_infer_bits", "measure_phases",
+                                   "frontdoor", "calibration_name",
+                                   "store_cache"])
+def test_entry_points_raise_without_cuda_unless_cpu(no_cuda, entry,
+                                                    tmp_path):
     g, p = _prog()
     mega = build_megaprogram([p], mode="chain")
     x = _bits(1, 40, 8)
@@ -79,11 +98,20 @@ def test_entry_points_raise_without_cuda_unless_cpu(no_cuda, entry):
         "engine": lambda **kw: LogicEngine(CompileSpec(n_unit=8),
                                            capacity=64, **kw).serve(g, x),
         "program_arrays": lambda **kw: ops.program_arrays(p, **kw),
+        "phased_infer_bits": lambda **kw: ops.phased_infer_bits(p, x,
+                                                                **kw)[0],
+        "measure_phases": lambda **kw: measure_program_phases(p, 32, reps=1,
+                                                              **kw),
+        "frontdoor": lambda **kw: _door_round(g, x, **kw),
+        "calibration_name": lambda **kw: ops.calibration_name(**kw),
+        "store_cache": lambda **kw: ProgramCache(
+            store=ArtifactStore(tmp_path), **kw),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
     out = calls[entry](device="cpu")
-    if entry != "program_arrays":
+    if entry in ("logic_infer_bits", "mega_infer_bits", "engine",
+                 "phased_infer_bits", "frontdoor"):
         np.testing.assert_array_equal(out, g.evaluate(x))
 
 
@@ -402,6 +430,60 @@ def test_engine_one_launch_per_wave_on_card(cuda):
     before = _k.launch_count("mega")
     np.testing.assert_array_equal(eng.serve(g, x), g.evaluate(x))
     assert _k.launch_count("mega") - before == eng.stats()["invocations"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_unit,batch", [(8, 1), (16, 70), (256, 8192)])
+def test_phase_split_on_card(cuda, n_unit, batch):
+    """phased_infer_bits on the card: one K1 launch a call, its words equal
+    the fused path's and the oracle's, every phase timed; logic_infer_bits
+    takes it while a PhaseTimer is active."""
+    g, p = _prog(6, n_unit=n_unit, n_gates=600)
+    x = _bits(6, batch, 8)
+    before = _k.launch_count("logic")
+    out, phases = ops.phased_infer_bits(p, x, device=cuda)
+    assert _k.launch_count("logic") == before + 1
+    assert set(phases) == set(PHASES) and all(
+        v > 0 for v in phases.values())
+    np.testing.assert_array_equal(out, ops.logic_infer_bits(p, x,
+                                                            device=cuda))
+    np.testing.assert_array_equal(out, execute_program_np(p, x))
+    with PhaseTimer() as t:
+        timed = ops.logic_infer_bits(p, x, device=cuda)
+    np.testing.assert_array_equal(timed, out)
+    assert t.samples[0]["meta"] == {"backend": "cuda", "n_unit": n_unit,
+                                    "batch": batch}
+
+
+@pytest.mark.cuda
+def test_frontdoor_round_on_card(cuda):
+    """Two tenants through a door on the card (its default device): every
+    result equals the graph's bits, one K2 launch per engine wave, no K1
+    launch, and the executor thread ran on the door's device."""
+    g_a, _ = _prog(7, n_gates=300)
+    g_b = random_graph(np.random.default_rng(8), 10, 200, 5, locality=16)
+    rng = np.random.default_rng(9)
+
+    async def go():
+        door = FrontDoor(spec=CompileSpec(n_unit=16), capacity=256,
+                         default_deadline_s=60.0)
+        door.register("a", g_a)
+        door.register("b", g_b)
+        reqs = [(name, g, rng.integers(0, 2, (17 + 9 * i, g.n_inputs))
+                 .astype(bool))
+                for i, (name, g) in enumerate([("a", g_a), ("b", g_b)] * 4)]
+        async with door:
+            outs = await asyncio.gather(
+                *(door.submit(name, x) for name, _, x in reqs))
+        return door, reqs, outs
+
+    k1, k2 = _k.launch_count("logic"), _k.launch_count("mega")
+    door, reqs, outs = asyncio.run(asyncio.wait_for(go(), timeout=300))
+    assert door.engine.device.type == "cuda"
+    for (_, g, x), out in zip(reqs, outs):
+        np.testing.assert_array_equal(out, g.evaluate(x))
+    assert _k.launch_count("logic") == k1
+    assert _k.launch_count("mega") - k2 == door.engine.invocations > 0
 
 
 @pytest.mark.cuda

@@ -12,13 +12,19 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
-# modules every walk must reach (the XNOR GEMM and the NullaNet flow)
+# modules every walk must reach (the XNOR GEMM, the NullaNet flow, the
+# front door, its traffic, the tools and the serving examples)
 EXPECTED = ("repro_torch.kernels.native", "repro_torch.kernels.xnor_gemm.ops",
             "repro_torch.kernels.xnor_gemm.kernel",
             "repro_torch.kernels.xnor_gemm.ref", "repro_torch.data.synthetic",
             "repro_torch.core.nullanet", "repro_torch.core.simulator",
             "repro_torch.flow.convert", "repro_torch.flow.classifier",
-            "repro_torch.flow.report", "repro_torch.examples.e2e_nullanet")
+            "repro_torch.flow.report", "repro_torch.examples.e2e_nullanet",
+            "repro_torch.serve.frontdoor", "repro_torch.serve.traffic",
+            "repro_torch.tools.calibrate", "repro_torch.tools.precompile",
+            "repro_torch.examples.serve_logic",
+            "repro_torch.examples.serve_frontdoor",
+            "repro_torch.examples.warm_start")
 
 
 def test_package_imports_without_jax_or_reference():
@@ -32,7 +38,7 @@ def test_package_imports_without_jax_or_reference():
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         f"missing = sorted(set({EXPECTED!r}) - set(names))\n"
         "print(len(names), bad, missing)\n"
-        "sys.exit(1 if bad or missing or len(names) < 30 else 0)\n")
+        "sys.exit(1 if bad or missing or len(names) < 38 else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
