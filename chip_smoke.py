@@ -44,9 +44,22 @@ each tenant's program evicted and reloaded from the store between them.
 ``warm_start``: fc1 and fc2 precompiled into a fresh store by the port's
 precompile tool and served from a fresh process with zero compiles.
 
+Then the slice that brings a user's own logic and an LM onto the card.
+``quickstart``: the paper's quickstart (a Verilog module parsed,
+synthesized, scheduled and run through K1) against direct evaluation and
+its ground truth.  ``logic_ffn``: a 2-layer transformer whose FFNs are
+binarized, converted to gate programs from calibration bits and run
+through K1 (the logic-FFN swap).  ``lm``: qwen3-8b at full width and depth
+from random weights, prefill plus decode held against the forward in
+float32, then served in bf16 by the continuous-batching launcher.  The
+front door's phase ends with the reference's own 2x load point, whose
+latency bound is reported, and the warm-start phase audits its store with
+``repro_torch.tools.verify_program``.
+
 Output, one JSON object per line: ``env``, ``build``, ``parity``,
 ``main_path``, ``timing``, ``engine``, ``xnor``, ``flow``, ``calibrate``,
-``frontdoor`` and ``warm_start``; then the
+``frontdoor``, ``warm_start``, ``quickstart``, ``logic_ffn`` and ``lm``;
+then the
 card's name and power limit as nvidia-smi prints them; then a ``kernels``
 line (per kernel: its launches on the main paths, its largest difference
 from the plain version, its device time per call, the plain version's
@@ -129,6 +142,29 @@ FD_LIGHT_LOAD, FD_LIGHT_REQUESTS = 0.2, 400
 FD_OVERLOAD, FD_OVERLOAD_REQUESTS = 4.0, 1200
 FD_SAT_S = 1.0
 FD_FAULTS = dict(seed=7, drop_rate=0.02, delay_rate=0.02, delay_s=0.002)
+# the reference's own 2x load point (tests/test_frontdoor.py:400-447): the
+# unloaded p99 from sequential requests, 2 x capacity / wave / 24 requests
+# a second split over a Poisson and a Pareto tenant, eviction and delay
+# faults; its bound 3 x unloaded p99 + 75 ms is reported, not gated
+FD2X_SEQUENTIAL, FD2X_REQUESTS, FD2X_SIZE_MAX, FD2X_DEADLINE_S = 20, 50, 96, 0.4
+FD2X_FAULTS = dict(seed=5, evict_rate=0.2, delay_rate=0.1, delay_s=0.002)
+# the LM serving path: qwen3-8b at full width and depth; parity in float32
+# on LM_PARITY_TOKENS tokens (prefill all but the last LM_PARITY_DECODE,
+# decode those) against the forward at the reference test's tolerance
+# (tests/test_serve.py:29-37), then serving in the config's bf16 at
+# launch/serve.py's defaults
+LM_ARCH = "qwen3-8b"
+LM_PARITY_BATCH, LM_PARITY_TOKENS, LM_PARITY_DECODE = 2, 16, 4
+LM_PARITY_TOL = 2e-3
+LM_SERVE = dict(requests=8, batch_size=4, prompt_len=16, max_new=8,
+                context=64)
+LM_TRACED_STEPS = 8
+# the logic-FFN swap at the widths of the reference's own example
+# (examples/logic_mlp_swap.py:38-46): calibration from TokenPipeline(256,
+# 8, 32) batches 900.., a held-out batch 1234, n_unit 16
+LOGIC_FFN = dict(n_layers=2, d_model=48, d_ff=24, n_heads=4, n_kv_heads=2,
+                 head_dim=12, vocab_size=256, logic_mlp=True)
+LOGIC_FFN_CALIB, LOGIC_FFN_HELD_OUT, LOGIC_FFN_UNIT = 8, 1234, 16
 
 
 def emit(obj: dict) -> None:
@@ -214,9 +250,6 @@ def run(args, torch) -> None:
           "xnor_kernel issues tensor-core instructions")
 
     max_err = {"logic": 0, "mega": 0}
-
-    def word_err(a, b) -> int:
-        return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
     def bits_on_card(x_np):
         return torch.from_numpy(x_np).to(dev)
@@ -616,10 +649,16 @@ def run(args, torch) -> None:
     door = frontdoor_phase(args, torch, dev, smi, tenants, fc2_synth_s)
     warm = warm_start_phase(args, smi, tenants,
                             door["cold_first_request_s"])
+    quick = quickstart_phase(torch, dev, smi)
+    lffn = logic_ffn_phase(args, torch, dev, smi, cuda_ms)
+    lm_phase(args, torch, dev, smi)
+    max_err["logic"] = max(max_err["logic"], quick["max_abs_err"],
+                           lffn["max_abs_err"])
     paths = {"fc1": launches, "xnor": xnor["launches"],
              "flow": flow["launches"], "flow_default": flow["default"]["launches"],
              "calibrate": calib["launches"], "frontdoor": door["launches"],
-             "warm_start": warm["launches"]}
+             "warm_start": warm["launches"], "quickstart": quick["launches"],
+             "logic_ffn": lffn["launches"]}
     check(xnor["launches"]["xnor"] == len(XNOR_SHAPES),
           "xnor_gemm made one K3 launch per full-width call")
 
@@ -1000,12 +1039,17 @@ def frontdoor_phase(args, torch, dev, smi, tenants, fc2_synth_s) -> dict:
     come from measurements: L, one mean-size request's latency alone; a
     light Poisson trace at ``FD_LIGHT_LOAD / L``; R_sat, the closed-loop
     completion rate at every tenant's inflight cap; a Poisson overload at
-    ``FD_OVERLOAD x R_sat`` with a seeded FaultPolicy (drops, delays).
-    Between the traces each tenant's program is evicted and reloaded from
-    the store.  Gated: bit-exact results, every request accounted for,
-    paced traces, the light trace's sheds, the overload's sheds and
+    ``FD_OVERLOAD x R_sat`` with a seeded FaultPolicy (drops, delays);
+    last the reference's own 2x point (``two_x``: unloaded p99 from
+    sequential requests, 2 x capacity / wave / 24 requests a second,
+    eviction and delay faults) with its bound 3 x unloaded p99 + 75 ms
+    reported as held or not.  Between the first traces each tenant's
+    program is evicted and reloaded from the store.  Gated: bit-exact
+    results, every request accounted for, known shed codes, paced light
+    and overload traces, the light trace's sheds, the overload's sheds and
     injected drops, one K2 launch per wave, reloads with no compile.
-    Timings (latencies, idle share) are reported, not gated."""
+    Timings (latencies, the 2x bound, idle share) are reported, not
+    gated."""
     import asyncio
 
     import numpy as np
@@ -1109,6 +1153,44 @@ def frontdoor_phase(args, torch, dev, smi, tenants, fc2_synth_s) -> dict:
                 "r_sat_rps": done[0] / elapsed, "waves": waves,
                 "requests_per_wave": done[0] / max(1, waves)}
 
+    async def two_x_point(door, served):
+        """The reference's graceful-degradation point: the unloaded p99 of
+        sequential mean-size requests (the door's own latency window),
+        then 2 x the sustainable rate (capacity / wave / mean size) split
+        over a Poisson and a Pareto tenant under eviction and delay
+        faults, and the bound 3 x unloaded p99 + 75 ms (reported)."""
+        door.reset_metrics()
+        _, seq = await sequential(door, FD2X_SEQUENTIAL)
+        served += seq
+        unloaded_p99 = door.metrics()["latency_p99_ms"]
+        door.reset_metrics()
+        wave = door.wave_s
+        check(wave is not None and wave > 0, "the door measured its wave")
+        sustainable = CAPACITY / max(wave, 1e-4) / FD_SIZE_MEAN
+        rate = 2.0 * sustainable / len(names)
+        arrivals = dict(zip(names, ("poisson", "pareto")))
+        trace = build_trace([TrafficPattern(
+            tenant=n, rate_rps=rate, n_requests=FD2X_REQUESTS,
+            arrival=arrivals[n], pareto_alpha=1.5, size_mean=FD_SIZE_MEAN,
+            size_max=FD2X_SIZE_MAX, deadline_s=FD2X_DEADLINE_S)
+            for n in names], seed=args.seed + 17)
+        trace_bits = payloads(trace)
+        policy = FaultPolicy(**FD2X_FAULTS)
+        door.fault_policy = policy
+        w0 = door.engine.invocations
+        res, prof = await profiled(drive_trace(door, trace, trace_bits))
+        door.fault_policy = None
+        summ = trace_summary(res, door.engine.invocations - w0,
+                             FD2X_DEADLINE_S)
+        bound = 3.0 * unloaded_p99 + 75.0
+        return {**summ, "unloaded_p99_ms": unloaded_p99,
+                "wave_ms": wave * 1e3, "sustainable_rps": sustainable,
+                "rate_rps": 2.0 * sustainable, "faults": dict(FD2X_FAULTS),
+                "injected": dict(policy.injected), "bound_ms": bound,
+                "bound_held": (None if summ["p99_ms"] is None
+                               else summ["p99_ms"] <= bound),
+                "gated": False, **prof}, res
+
     async def go(store_dir):
         served = []
         out = {}
@@ -1167,6 +1249,7 @@ def frontdoor_phase(args, torch, dev, smi, tenants, fc2_synth_s) -> dict:
                                "faults": dict(FD_FAULTS),
                                "injected": dict(policy.injected), **prof}
             out["overload_raw"] = res
+            out["two_x"], out["two_x_raw"] = await two_x_point(door, served)
         out["served"] = served
         out["waves"] = door.engine.invocations
         out["cache"] = door.engine.cache.stats()
@@ -1183,8 +1266,8 @@ def frontdoor_phase(args, torch, dev, smi, tenants, fc2_synth_s) -> dict:
     launches = {k: K.launch_count(k) for k in ("logic", "mega", "xnor")}
     # front-door path ends here
     wall_s = time.perf_counter() - t0
-    light_raw, over_raw = r.pop("light_raw"), r.pop("overload_raw")
-    served = r.pop("served") + light_raw["served"] + over_raw["served"]
+    raws = [r.pop(k) for k in ("light_raw", "overload_raw", "two_x_raw")]
+    served = r.pop("served") + [x for raw in raws for x in raw["served"]]
     t1 = time.perf_counter()
     by_tenant = {}
     for name, bits, y in served:
@@ -1206,12 +1289,14 @@ def frontdoor_phase(args, torch, dev, smi, tenants, fc2_synth_s) -> dict:
            "oracle_s": oracle_s, "wall_s": wall_s, "launches": launches}
     emit(out)
     check(all(exact.values()), f"every served result is bit-exact: {exact}")
-    for trace in ("light", "overload"):
+    for trace in ("light", "overload", "two_x"):
         t = out[trace]
         check(t["completed"] + t["shed"] == t["offered"],
               f"{trace}: completed + shed == offered")
         check(all(c in SHED_CODES for c in t["shed_by_code"]),
               f"{trace}: every shed code is known: {t['shed_by_code']}")
+    for trace in ("light", "overload"):
+        t = out[trace]
         check(t["offered_span_s"] >= 0.8 * t["trace_span_s"],
               f"{trace}: the trace was paced ({t['offered_span_s']:.3f} s "
               f"offered over a {t['trace_span_s']:.3f} s trace)")
@@ -1273,11 +1358,13 @@ print(json.dumps(out))
 
 def warm_start_phase(args, smi, tenants, cold_first_request_s) -> dict:
     """Fleet warm start on the card: the port's precompile tool publishes
-    fc1 and fc2 into a fresh store, and a fresh process serves each once
-    from it.  Gated: zero compiles there, two store hits, bit-exact
-    results; the first request's time warm (store load) is reported beside
-    the front door's cold one (optimize + compile).  The launches are the
-    child's, read from its own counters."""
+    fc1 and fc2 into a fresh store, a fresh process serves each once from
+    it, and ``python -m repro_torch.tools.verify_program --store S --json``
+    audits the store.  Gated: zero compiles there, two store hits,
+    bit-exact results, the audit's exit 0 with both entries clean; the
+    first request's time warm (store load) is reported beside the front
+    door's cold one (optimize + compile).  The launches are the child's,
+    read from its own counters."""
     import numpy as np
 
     from repro_torch.core.artifact_store import ArtifactStore
@@ -1312,9 +1399,18 @@ def warm_start_phase(args, smi, tenants, cold_first_request_s) -> dict:
              str(args.seed + 9), str(FD_SIZE_MEAN)],
             env=env, capture_output=True, text=True, timeout=600)
         child_s = time.perf_counter() - t0
+        # the store audit an operator runs before promoting the store
+        t0 = time.perf_counter()
+        audit = subprocess.run(
+            [sys.executable, "-m", "repro_torch.tools.verify_program",
+             "--store", str(store.root), "--json"],
+            env=env, capture_output=True, text=True, timeout=600)
+        audit_s = time.perf_counter() - t0
     check(proc.returncode == 0,
           f"the warm-start process ran: {proc.stderr[-2000:]}")
     child = json.loads(proc.stdout.strip().splitlines()[-1])
+    entries = [json.loads(ln) for ln in audit.stdout.strip().splitlines()
+               if ln.startswith("{")]
     out = {"phase": "warm_start", "nvidia_smi": smi, "precompile": pre,
            "child_s": child_s,
            "child": child,
@@ -1322,8 +1418,20 @@ def warm_start_phase(args, smi, tenants, cold_first_request_s) -> dict:
                n: {"cold": cold_first_request_s[n] * 1e3,
                    "warm": child["first_request_s"][n] * 1e3}
                for n in tenants},
-           "launches": child["launches"]}
+           "launches": child["launches"],
+           "verify_program": {
+               "rc": audit.returncode, "seconds": audit_s,
+               "entries": [{k: e.get(k) for k in ("key", "name", "ok",
+                                                  "n_programs", "elapsed_s",
+                                                  "diagnostics")}
+                           for e in entries],
+               "stderr": audit.stderr.strip()[-600:]}}
     emit(out)
+    check(audit.returncode == 0 and len(entries) == len(tenants) and
+          all(e["ok"] and not e["diagnostics"] for e in entries) and
+          sorted(e["key"] for e in entries) ==
+          sorted(p["key"] for p in pre.values()),
+          f"verify_program finds both entries clean: {out['verify_program']}")
     check(child["device"].startswith("cuda"), "the child served on the card")
     check(child["compiles"] == 0 and child["store_hits"] == len(tenants),
           f"zero compiles and {len(tenants)} store hits: {child}")
@@ -1332,6 +1440,350 @@ def warm_start_phase(args, smi, tenants, cold_first_request_s) -> dict:
           child["launches"]["logic"] == 0,
           f"one K2 launch per warm wave: {child}")
     return out
+
+
+def word_err(a, b) -> int:
+    """The largest difference between two word (or int) tensors."""
+    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+def quickstart_phase(torch, dev, smi) -> dict:
+    """The paper's quickstart on the card (``repro_torch.examples
+    .quickstart``): a Verilog module (5-input majority and parity) parsed,
+    synthesized by the pass pipeline, scheduled on 4 units and run through
+    ``logic_infer_bits``, one K1 launch.  Gated: K1's output equals the
+    plain version (words and bits), direct evaluation and the majority /
+    parity ground truth on 1,000 vectors.  Reported: gates, steps and the
+    cost model's cycles."""
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels.logic_dsp import kernel as K
+    from repro_torch.kernels.logic_dsp import ops
+
+    t0 = time.perf_counter()
+    K.reset_launch_counts()                     # quickstart path starts here
+    r = quickstart.run(device=dev)
+    torch.cuda.synchronize()
+    launches = {k: K.launch_count(k) for k in ("logic", "mega", "xnor")}
+    wall_s = time.perf_counter() - t0           # quickstart path ends here
+    prog, x, graph, b = r["program"], r["x"], r["graph"], r["cost"]
+    words = ops.pack_bits(torch.from_numpy(x).to(dev))
+    err = word_err(ops.logic_forward(prog, words),
+                   ops.logic_forward(prog, words, use_ref=True))
+    torch.cuda.synchronize()
+    plain = ops.logic_infer_bits(prog, x, device=dev, use_ref=True)
+    exact = {"kernel_vs_plain": bool((r["out"] == plain).all()),
+             "kernel_vs_evaluate": bool((r["out"] == graph.evaluate(x))
+                                        .all()),
+             "majority": bool((r["out"][:, 0] == (x.sum(1) >= 3)).all()),
+             "parity": bool((r["out"][:, 1] == (x.sum(1) % 2 == 1)).all())}
+    out = {"phase": "quickstart", "nvidia_smi": smi,
+           "module": r["parsed"].name, "parsed": r["parsed"].stats(),
+           "synthesized": graph.stats(), "gates": graph.n_gates,
+           "steps": prog.n_steps, "n_addr": prog.n_addr,
+           "n_unit": prog.n_unit, "vectors": len(x),
+           "cost_model": {"cycles": b.n_total_pipelined,
+                          "data_moves": b.n_data_moves,
+                          "compute": b.n_compute, "bound": b.bound},
+           "exact": exact, "max_abs_err": err, "tolerance": 0,
+           "wall_s": wall_s, "launches": launches}
+    emit(out)
+    check(all(exact.values()) and err == 0,
+          f"quickstart: K1 == plain == evaluate == ground truth: {exact}")
+    check(launches["logic"] == 1 and launches["mega"] == 0,
+          f"quickstart: one K1 launch: {launches}")
+    return out
+
+
+def logic_ffn_phase(args, torch, dev, smi, cuda_ms) -> dict:
+    """The logic-FFN swap on the card (paper §7.1 inside a transformer),
+    at the widths of the reference's example: a 2-layer qwen3-smoke
+    transformer (d_model 48, d_ff 24) whose FFNs are binarized (w_in =
+    0.5 N(0,1), b_in = 0, w_out = 0.1 N(0,1) from ``--seed``, untrained).
+    Calibration bits are each layer's FFN inputs from the binary model
+    over ``LOGIC_FFN_CALIB`` TokenPipeline batches; ``ffn_to_program``
+    converts each layer, and the logic model (K1 for every FFN) runs the
+    calibration batches and a held-out one.  Gated: K1's hidden bits equal
+    the plain executor's and ``binary_ffn``'s in both layers, and the
+    logits equal the binary model's within 1e-6 on the calibration
+    batches.  Reported: conversion seconds, gates and steps per layer,
+    K1's device ms per call, and the held-out argmax agreement (not
+    gated: unseen patterns may differ, paper §7.1)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.spec import CompileSpec
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels.logic_dsp import kernel as K
+    from repro_torch.kernels.logic_dsp import ops
+    from repro_torch.models import logic_mlp
+    from repro_torch.models.transformer import init_params
+
+    cfg = get_config(LM_ARCH, smoke=True).with_(**LOGIC_FFN)
+    gen = torch.Generator(dev).manual_seed(args.seed)
+    model = init_params(cfg, gen, dev)
+    with torch.no_grad():
+        for blk in model.blocks:
+            blk.w_in.copy_(0.5 * torch.randn(blk.w_in.shape, generator=gen,
+                                             device=dev))
+            blk.b_in.zero_()
+            blk.w_out.copy_(0.1 * torch.randn(blk.w_out.shape,
+                                              generator=gen, device=dev))
+    pipe = TokenPipeline(cfg.vocab_size, 8, 32, seed=args.seed)
+    calib = [torch.from_numpy(pipe.batch(900 + i)["tokens"]).to(dev)
+             for i in range(LOGIC_FFN_CALIB)]
+    held = torch.from_numpy(pipe.batch(LOGIC_FFN_HELD_OUT)["tokens"]).to(dev)
+    d = cfg.d_model
+    binary, captured = [], [[] for _ in model.blocks]
+    for tokens in calib:
+        ins = []
+        binary.append(model(tokens, ffn_inputs=ins))
+        for i, h in enumerate(ins):
+            captured[i].append(h.reshape(-1, d))
+    binary_held = model(held)
+
+    layers, t0 = [], time.perf_counter()
+    for i, blk in enumerate(model.blocks):
+        bits = (torch.cat(captured[i]) >= 0).cpu().numpy()
+        t1 = time.perf_counter()
+        blk.program = logic_mlp.ffn_to_program(
+            blk.params(), bits, CompileSpec(n_unit=LOGIC_FFN_UNIT),
+            name=f"ffn{i}")
+        layers.append({"samples": len(bits),
+                       "distinct_patterns": len(np.unique(bits, axis=0)),
+                       "gates": blk.program.n_gates,
+                       "steps": blk.program.n_steps,
+                       "n_addr": blk.program.n_addr,
+                       "convert_s": time.perf_counter() - t1})
+    convert_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    K.reset_launch_counts()                     # logic-FFN path starts here
+    logic, logic_inputs = [], []
+    for tokens in calib:
+        ins = []
+        logic.append(model(tokens, ffn_inputs=ins))
+        logic_inputs.append(ins)
+    held_inputs = []
+    logic_held = model(held, ffn_inputs=held_inputs)
+    torch.cuda.synchronize()
+    launches = {k: K.launch_count(k) for k in ("logic", "mega", "xnor")}
+    wall_s = time.perf_counter() - t0           # logic-FFN path ends here
+
+    err, hidden_equal = 0, True
+    for ins in logic_inputs:
+        for blk, h in zip(model.blocks, ins):
+            words = ops.pack_bits((h.float() >= 0).reshape(-1, d))
+            k1 = ops.logic_forward(blk.program, words)
+            err = max(err, word_err(k1, ops.logic_forward(
+                blk.program, words, use_ref=True)))
+            hidden = ops.unpack_bits(k1, h.shape[0] * h.shape[1])
+            hidden_equal &= torch.equal(
+                hidden, logic_mlp.binary_hidden(blk.params(), h))
+    logit_err = max(float((a - b).abs().max()) for a, b in zip(logic,
+                                                              binary))
+    vocab = cfg.vocab_size
+    agree = float((logic_held[..., :vocab].argmax(-1) ==
+                   binary_held[..., :vocab].argmax(-1)).float().mean())
+
+    prog = model.blocks[0].program
+    words = ops.pack_bits((held_inputs[0].float() >= 0).reshape(-1, d))
+    a = ops.program_arrays(prog, dev)
+    k1_call = (lambda: K.logic_cuda_call(a["rec"], words, a["output_addrs"],
+                                         n_addr=prog.n_addr, plan=a["plan"]))
+    out = {"phase": "logic_ffn", "nvidia_smi": smi,
+           "model": f"{cfg.name} at the logic_mlp_swap widths",
+           "config": {k: getattr(cfg, k) for k in LOGIC_FFN},
+           "calibration_batches": LOGIC_FFN_CALIB, "n_unit": LOGIC_FFN_UNIT,
+           "layers": layers, "convert_s": convert_s,
+           "hidden_bits_equal": hidden_equal, "max_abs_err": err,
+           "tolerance": 0, "logits_max_abs_diff": logit_err,
+           "logits_tolerance": 1e-6, "held_out_argmax_agreement": agree,
+           "k1_words": words.shape[1],
+           "k1_device_ms": device_ms_per_call(torch, k1_call, 50),
+           "k1_plain_ms": cuda_ms(lambda: ops.logic_forward(
+               prog, words, use_ref=True), 3, warmup=1),
+           "k1_scratch": a["plan"].scratch, "wall_s": wall_s,
+           "launches": launches}
+    emit(out)
+    check(err == 0 and hidden_equal,
+          "logic FFN: K1's hidden bits == plain == binary_ffn's")
+    check(logit_err <= 1e-6,
+          f"logic FFN: logits == the binary model's ({logit_err})")
+    check(launches["logic"] == cfg.n_layers * (LOGIC_FFN_CALIB + 1) and
+          launches["mega"] == 0,
+          f"logic FFN: one K1 launch per layer and batch: {launches}")
+    return out
+
+
+def lm_phase(args, torch, dev, smi) -> dict:
+    """LM serving on the card: qwen3-8b at full width and depth (36
+    layers, d 4096, 32 heads over 8 KV heads, d_ff 12,288, vocab 151,936),
+    random weights from ``--seed``.  (a) Parity in float32 with TF32 off:
+    prefill of the first tokens plus one decode step per remaining token
+    against the full forward, at the reference test's tolerance (gated);
+    the float32 copy is freed after.  (b) Serving in the config's bf16
+    through ``launch.serve``'s loop at its defaults (gated: every request
+    finishes with ``max_new`` tokens, each id in the vocabulary), with
+    prefill and decode-step times, tokens per second, the peak of device
+    memory, the device's idle share over a traced decode loop and the
+    decode step's byte floor (every weight it reads, once, at the HBM
+    rate) reported."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import decode_step, prefill
+
+    cfg = get_config(LM_ARCH)
+    out = {"phase": "lm", "nvidia_smi": smi, "model": cfg.name,
+           "config": {k: getattr(cfg, k) for k in (
+               "n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
+               "d_ff", "vocab_size", "qk_norm", "param_dtype",
+               "compute_dtype")},
+           "params": cfg.param_count()}
+
+    # (a) parity in float32
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    model = init_params(cfg.with_(param_dtype="float32",
+                                  compute_dtype="float32"),
+                        torch.Generator(dev).manual_seed(args.seed), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(args.seed + 21)
+    B, S = LM_PARITY_BATCH, LM_PARITY_TOKENS
+    P = S - LM_PARITY_DECODE
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))).to(dev)
+    t0 = time.perf_counter()
+    full = model(toks)
+    lp, cache = prefill(model, toks[:, :P], context=S)
+    pairs = [(lp, full[:, :P])]
+    for t in range(P, S):
+        lg, cache = decode_step(model, toks[:, t:t + 1], cache)
+        pairs.append((lg[:, 0], full[:, t]))
+    torch.cuda.synchronize()
+    parity_s = time.perf_counter() - t0
+    tol = LM_PARITY_TOL
+    held = [bool(torch.allclose(a, b, rtol=tol, atol=tol)) for a, b in pairs]
+    out["parity"] = {
+        "dtype": "float32", "allow_tf32": False, "batch": B, "tokens": S,
+        "prefill": P, "decode_steps": S - P, "rtol": tol, "atol": tol,
+        "max_abs_diff": max(float((a - b).abs().max()) for a, b in pairs),
+        "logits_max_abs": float(full.abs().max()), "held": held,
+        "finite": bool(torch.isfinite(full).all()),
+        "param_bytes": sum(p.numel() * p.element_size()
+                           for p in model.parameters()),
+        "init_s": init_s, "seconds": parity_s,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+    del model, full, lp, lg, cache, pairs
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+
+    # (b) serving in bf16
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(dev).manual_seed(args.seed),
+                        dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sv = LM_SERVE
+    prompts = launch_serve.make_prompts(cfg, sv["requests"],
+                                        sv["prompt_len"], args.seed)
+    launch_serve.serve(model, prompts[:1], batch_size=1, max_new=2,
+                       context=sv["context"])                   # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
+    r = launch_serve.serve(model, prompts, batch_size=sv["batch_size"],
+                           max_new=sv["max_new"], context=sv["context"])
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    state = {}
+
+    def decode_loop():
+        _, state["cache"] = prefill(
+            model, torch.as_tensor(prompts[0], device=dev)[None],
+            context=sv["context"])
+        tok = int(prompts[0][-1])
+        for _ in range(LM_TRACED_STEPS):
+            logits, state["cache"] = decode_step(
+                model, torch.tensor([[tok]], device=dev), state["cache"])
+            tok = int(torch.argmax(logits[0, -1]))
+
+    wall_us, busy_us, by_name = traced(torch, decode_loop)
+    host = decode_step_host_profile(torch, model, state["cache"], dev)
+    # what one decode step must read: every block weight, the final norm
+    # and the LM head once, one embedding row
+    step_bytes = sum(p.numel() * p.element_size() for blk in model.blocks
+                     for p in blk.parameters()) + sum(
+        p.numel() * p.element_size() for p in (model.final_norm,
+                                                model.lm_head)) + \
+        cfg.d_model * model.embed.element_size()
+    dec = np.asarray(r["decode_s"]) * 1e3
+    pre = np.asarray(r["prefill_s"]) * 1e3
+    finished = r["finished"]
+    out["serve"] = {
+        **sv, "init_s": init_s,
+        "param_bytes": sum(p.numel() * p.element_size()
+                           for p in model.parameters()),
+        "finished": len(finished), "decode_steps": r["n_steps"],
+        "seconds": r["seconds"], "tok_per_s": r["n_steps"] / r["seconds"],
+        "prefill_ms_p50": float(np.median(pre)),
+        "prefill_ms_max": float(pre.max()),
+        "decode_step_ms_p50": float(np.percentile(dec, 50)),
+        "decode_step_ms_p90": float(np.percentile(dec, 90)),
+        "max_memory_allocated": peak,
+        "decode_step_bytes": step_bytes,
+        "decode_step_floor_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+        "traced_decode_steps": LM_TRACED_STEPS,
+        "traced_wall_ms": wall_us / 1e3,
+        "device_busy_ms": None if busy_us is None else busy_us / 1e3,
+        "device_idle_share": (None if busy_us is None
+                              else 1 - busy_us / wall_us),
+        "device_ms_by_name": dict(by_name[:5]),
+        "one_step_host_profile": host,
+        "first_tokens": {q.uid: q.generated for q in finished[:2]}}
+    out["serve"]["decode_step_vs_floor"] = \
+        out["serve"]["decode_step_ms_p50"] / \
+        out["serve"]["decode_step_floor_ms"]
+    emit(out)
+    p = out["parity"]
+    check(p["finite"] and all(p["held"]),
+          f"lm: prefill + decode == forward within {tol} in float32 "
+          f"({p['max_abs_diff']})")
+    check(sorted(q.uid for q in finished) == list(range(sv["requests"])),
+          "lm: every request finished")
+    check(all(len(q.generated) == sv["max_new"] and
+              all(0 <= t < cfg.vocab_size for t in q.generated)
+              for q in finished),
+          f"lm: {sv['max_new']} tokens per request, each in the vocabulary")
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def decode_step_host_profile(torch, model, cache, dev) -> dict:
+    """One more decode step under torch.profiler: the kernels it launches,
+    the host's wall time for it (profiled), and the operators with the
+    most host time (ms), largest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import decode_step
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        logits, _ = decode_step(model, torch.tensor([[0]], device=dev),
+                                cache)
+        int(torch.argmax(logits[0, -1]))
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    avgs = prof.key_averages()
+    launches = sum(a.count for a in avgs
+                   if "LaunchKernel" in a.key or a.key == "cudaMemcpyAsync")
+    top = sorted(((a.key, a.self_cpu_time_total / 1e3, a.count)
+                  for a in avgs), key=lambda t: -t[1])[:8]
+    return {"kernel_launches": launches, "wall_ms": wall_ms,
+            "host_ms_by_op": {k: {"ms": ms, "calls": n} for k, ms, n in top}}
 
 
 def scratch_dir() -> Path:

@@ -14,16 +14,24 @@ cross as plain data — numpy arrays, ints, strings and dicts, never
 * :func:`params_from_reference` validates the ``{"w{i}", "b{i}"}``
   float32 parameter dict of the reference's ``init_binary_mlp`` /
   ``train_binary_mlp``, which ``core.nullanet.layer_to_graph`` consumes
-  layer by layer.
+  layer by layer;
+* :func:`transformer_params_from_reference` turns a dense transformer's
+  parameter tree (``models/transformer.init_params``'s, as numpy, the
+  ``blocks`` stacked on a leading layer axis; with ``cfg.logic_mlp`` the
+  blocks carry the logic FFN's ``w_in``, ``b_in`` and ``w_out``) into the
+  state dict of the port's ``Transformer``.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.compiler import CompiledArtifact
 from repro_torch.core.gate_ir import LogicGraph
 from repro_torch.core.scheduler import LogicProgram
 from repro_torch.core.spec import CompileSpec
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import block_param_spec, param_spec
 
 
 def program_from_reference(arrays: dict, scalars: dict) -> LogicProgram:
@@ -94,3 +102,35 @@ def params_from_reference(params: dict) -> dict:
         if not np.isfinite(w).all() or not np.isfinite(b).all():
             raise ValueError(f"layer {i}: non-finite parameters")
     return out
+
+
+def transformer_params_from_reference(params: dict,
+                                      cfg: ModelConfig) -> dict:
+    """The port's ``Transformer`` state dict from the reference's
+    parameter tree: ``{"embed", "final_norm", "lm_head" (unless tied),
+    "blocks": {name: (n_layers, ...)}}`` of arrays.  ``blocks`` splits into
+    ``blocks.{i}.{name}``; every leaf must have the shape the port's
+    parameter spec gives it (the logic FFN's with ``cfg.logic_mlp``)."""
+    top = {k: shape for k, (_, shape) in param_spec(cfg).items()}
+    blk = {k: shape for k, (_, shape) in block_param_spec(cfg).items()}
+    if set(params) != set(top) | {"blocks"} or set(params["blocks"]) != \
+            set(blk):
+        raise ValueError(
+            f"expected {sorted(top)} and blocks {sorted(blk)}, got "
+            f"{sorted(params)} and blocks {sorted(params.get('blocks', {}))}")
+    out = {}
+    for k, shape in top.items():
+        out[k] = _leaf(params[k], shape, k)
+    for k, shape in blk.items():
+        stacked = _leaf(params["blocks"][k], (cfg.n_layers, *shape),
+                        f"blocks/{k}")
+        for i in range(cfg.n_layers):
+            out[f"blocks.{i}.{k}"] = stacked[i]
+    return out
+
+
+def _leaf(a, shape, name: str) -> torch.Tensor:
+    a = np.asarray(a, dtype=np.float32)
+    if a.shape != tuple(shape):
+        raise ValueError(f"{name}: shape {a.shape}, expected {tuple(shape)}")
+    return torch.from_numpy(a.copy())

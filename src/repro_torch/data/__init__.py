@@ -1,4 +1,6 @@
-from repro_torch.data.synthetic import (make_binary_classification,
-                                        train_val_split)
+from repro_torch.data.synthetic import (TokenPipeline,
+                                        make_binary_classification,
+                                        synthetic_tokens, train_val_split)
 
-__all__ = ["make_binary_classification", "train_val_split"]
+__all__ = ["TokenPipeline", "make_binary_classification",
+           "synthetic_tokens", "train_val_split"]

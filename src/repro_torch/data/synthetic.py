@@ -1,12 +1,19 @@
-# make_binary_classification and train_val_split copied verbatim from
-# src/repro/data/synthetic.py; its TokenPipeline (the LM scaffold's token
-# stream) is not part of this package.
-"""Deterministic synthetic data for the NullaNet experiments (paper §8:
-MNIST / CIFAR-10 are not available offline): prototype-based binary
-feature vectors with controlled noise, learnable by a small binarized MLP,
-so the NN -> FFCL -> logic-inference accuracy-parity study is real.
+# Copied from src/repro/data/synthetic.py: the NullaNet experiments' data
+# and the LM's token stream.
+"""Deterministic synthetic data pipelines.
+
+Two consumers:
+  * NullaNet experiments (paper §8: MNIST / CIFAR-10 are not available
+    offline) -> ``make_binary_classification``: prototype-based binary
+    feature vectors with controlled noise; learnable by a small binarized
+    MLP, so the NN->FFCL->logic-inference accuracy-parity study is real.
+  * LM training (examples + trainer tests) -> ``TokenPipeline``: a
+    stateless-seekable token stream (seed, step) -> batch, so restarts and
+    elastic re-sharding replay the exact same data (fault-tolerance story).
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -36,3 +43,40 @@ def train_val_split(x: np.ndarray, y: np.ndarray, val_frac: float = 0.25,
     n_val = max(1, int(round(n * val_frac)))
     tr, va = perm[:-n_val], perm[-n_val:]
     return x[tr], y[tr], x[va], y[va]
+
+
+@dataclass(frozen=True)
+class TokenPipeline:
+    """Stateless-seekable synthetic token stream.
+
+    ``batch(step)`` is a pure function of (seed, step, shape) — a restart at
+    step k regenerates the identical batch k, and any host can materialize
+    just its shard (host-sharded loading at scale: each host slices
+    [host_id::n_hosts] of the global batch).
+    """
+
+    vocab_size: int
+    global_batch: int
+    seq_len: int
+    seed: int = 0
+
+    def batch(self, step: int, host_id: int = 0, n_hosts: int = 1
+              ) -> dict[str, np.ndarray]:
+        if self.global_batch % n_hosts:
+            raise ValueError("global_batch must divide by n_hosts")
+        per_host = self.global_batch // n_hosts
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, step, host_id]))
+        # Markov-ish structure so loss actually decreases during training.
+        base = rng.integers(0, self.vocab_size,
+                            size=(per_host, self.seq_len), dtype=np.int64)
+        shifted = np.roll(base, 1, axis=1)
+        mix = rng.random((per_host, self.seq_len)) < 0.5
+        tokens = np.where(mix, (shifted * 31 + 7) % self.vocab_size, base)
+        return {"tokens": tokens.astype(np.int32)}
+
+
+def synthetic_tokens(step: int, *, vocab_size: int, global_batch: int,
+                     seq_len: int, seed: int = 0) -> np.ndarray:
+    return TokenPipeline(vocab_size, global_batch, seq_len,
+                         seed).batch(step)["tokens"]

@@ -1,18 +1,78 @@
-# SlotTable copied verbatim from src/repro/serve/batcher.py; the rest of that
-# module (the token-decode RequestBatcher) is not part of this package.
+# Copied from src/repro/serve/batcher.py: Request, RequestBatcher (the token
+# decode batcher of the LM serving loop) and SlotTable (the logic engine's).
 """Request batching for the serving path (paper §5.2.4 host-side queueing).
 
-``SlotTable`` allocates *sample rows* of a fixed-capacity batch (for the
-logic engine, ``32 * W`` rows — the sample capacity of a packed
-``(n_wires, W)`` word slab, see core/packing.py). A bit-vector request
-occupies ``len(samples)`` rows for one fabric invocation and the rows are
-recycled for the next admission wave, so ragged request sizes (not
-multiples of 32) share words with their neighbours instead of padding to
-private word boundaries.
+The paper enqueues multiple OpenCL kernels out-of-order to keep the fabric
+busy; here a ``RequestBatcher`` packs incoming prompts into fixed-shape
+decode batches (continuous batching, slot-based): finished slots are
+recycled without recompiling, because the decode step is shape-stable.
+
+``SlotTable`` generalizes the same slot discipline beyond token decode: it
+allocates *sample rows* of a fixed-capacity batch (for the logic engine,
+``32 * W`` rows — the sample capacity of a packed ``(n_wires, W)`` word
+slab, see core/packing.py). A bit-vector request occupies ``len(samples)``
+rows for one fabric invocation and the rows are recycled for the next
+admission wave, so ragged request sizes (not multiples of 32) share words
+with their neighbours instead of padding to private word boundaries.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass, field
+
 import numpy as np
+
+
+@dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray            # (prompt_len,) int32
+    max_new_tokens: int
+    generated: list = field(default_factory=list)
+    done: bool = False
+
+
+class RequestBatcher:
+    """Slot-based continuous batcher over a fixed decode batch size."""
+
+    def __init__(self, batch_size: int, eos_id: int = -1):
+        self.batch_size = batch_size
+        self.eos_id = eos_id
+        self.slots: list[Request | None] = [None] * batch_size
+        self.queue: list[Request] = []
+        self.finished: list[Request] = []
+
+    def submit(self, req: Request) -> None:
+        self.queue.append(req)
+
+    def admit(self) -> list[tuple[int, Request]]:
+        """Fill empty slots from the queue; returns newly admitted."""
+        admitted = []
+        for i in range(self.batch_size):
+            if self.slots[i] is None and self.queue:
+                req = self.queue.pop(0)
+                self.slots[i] = req
+                admitted.append((i, req))
+        return admitted
+
+    def active_mask(self) -> np.ndarray:
+        return np.array([s is not None for s in self.slots], dtype=bool)
+
+    def record_tokens(self, tokens: np.ndarray) -> None:
+        """tokens: (batch,) next token per slot; retire finished slots."""
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            tok = int(tokens[i])
+            req.generated.append(tok)
+            if (tok == self.eos_id or
+                    len(req.generated) >= req.max_new_tokens):
+                req.done = True
+                self.finished.append(req)
+                self.slots[i] = None
+
+    @property
+    def idle(self) -> bool:
+        return not self.queue and all(s is None for s in self.slots)
 
 
 class SlotTable:

@@ -196,6 +196,12 @@ class ProgramCache:
         # compiles from a populated store), and a compile writes through
         # so sibling processes never repeat it.
         self.store = store
+        # The device whose calibration record a store-backed cache loads;
+        # an engine on another device refuses the cache (LogicEngine).
+        # None when neither a store nor a device is named: nothing in the
+        # cache then depends on a device.
+        self.device = None if store is None and device is None else \
+            resolve_device(device)
         # One reentrant lock serializes get/peek/evict and both memos:
         # engines sharing a cache from threads (the front door steps the
         # engine in an executor; the artifact-store warmers will too)
@@ -246,7 +252,7 @@ class ProgramCache:
         if store is not None and self.compiler.calibration is None:
             try:
                 self.compiler.calibration = store.load_calibration(
-                    calibration_name(device))
+                    calibration_name(self.device))
             except PermanentCompileError as exc:
                 self.store_failures += 1
                 warnings.warn(
@@ -724,7 +730,9 @@ class LogicEngine:
         explicit opt-in to the plain PyTorch executors on the CPU.
       cache: optionally share a :class:`ProgramCache` across engines.
         Mutually exclusive with ``max_programs`` / ``store`` — bound and
-        back a shared cache at its own construction.
+        back a shared cache at its own construction.  A cache built for
+        another device (its ``device``: the one whose calibration record
+        it loaded) raises ``ValueError``.
       max_programs: LRU bound on the engine-owned program cache.
       store: optional :class:`~repro_torch.core.artifact_store.ArtifactStore`
         backing the engine-owned cache.
@@ -757,6 +765,11 @@ class LogicEngine:
                 "store backs the engine-owned cache; attach an "
                 "ArtifactStore to the shared ProgramCache at its own "
                 "construction instead")
+        if cache is not None and cache.device not in (None, self.device):
+            raise ValueError(
+                f"the shared ProgramCache was built for {cache.device} and "
+                f"carries that device's calibration; this engine runs on "
+                f"{self.device}: build a cache with device={self.device}")
         self.cache = cache if cache is not None else \
             ProgramCache(max_programs, store=store, device=self.device)
 

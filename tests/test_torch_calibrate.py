@@ -256,6 +256,34 @@ def test_cpu_engine_never_loads_cuda_or_default_record(tmp_path):
     assert eng.cache.compiler.calibration.meta == {"tag": "cpu"}
 
 
+def test_shared_cache_carries_its_device_and_refuses_another(tmp_path,
+                                                           monkeypatch):
+    """A store-backed cache built for CUDA holds the ``torch-cuda`` fit: a
+    CPU engine refuses to share it, a CPU-built cache is shared by CPU
+    engines, and a cache with neither store nor device is any device's."""
+    store = ArtifactStore(tmp_path / "store")
+    store.save_calibration(_fit("cuda"), name="torch-cuda")
+    store.save_calibration(_fit("cpu"), name="torch-cpu")
+    # a card host as far as device resolution goes (no tensor is made)
+    monkeypatch.setattr("torch.cuda.is_available", lambda: True)
+    monkeypatch.setattr("torch.cuda.current_device", lambda: 0)
+    cuda_cache = ProgramCache(store=ArtifactStore(tmp_path / "store"))
+    assert str(cuda_cache.device) == "cuda:0"
+    assert cuda_cache.compiler.calibration.meta == {"tag": "cuda"}
+    with pytest.raises(ValueError, match="built for cuda:0"):
+        LogicEngine(CompileSpec(n_unit=16), capacity=64, device="cpu",
+                    cache=cuda_cache)
+    cpu_cache = ProgramCache(store=ArtifactStore(tmp_path / "store"),
+                             device="cpu")
+    assert cpu_cache.compiler.calibration.meta == {"tag": "cpu"}
+    engines = [LogicEngine(CompileSpec(n_unit=16), capacity=64,
+                           device="cpu", cache=cpu_cache) for _ in range(2)]
+    assert all(e.cache is cpu_cache for e in engines)
+    assert ProgramCache().device is None
+    LogicEngine(CompileSpec(n_unit=16), capacity=64, device="cpu",
+                cache=ProgramCache())
+
+
 def test_calibrate_tool_fits_publishes_and_verifies_on_cpu(tmp_path,
                                                            capsys):
     store_dir = tmp_path / "store"

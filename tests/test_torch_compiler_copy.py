@@ -1,8 +1,9 @@
 """Drift guard for the port's copies of the reference's numpy modules.
 
 The copies are verbatim apart from their import lines (the compiler under
-``repro_torch.core``, the simulator, the flow's layer conversion, the
-front door and its traffic generator), or verbatim function by function
+``repro_torch.core`` with the Verilog front end, the simulator, the flow's
+layer conversion, the model configuration and the architecture configs,
+the front door and its traffic generator), or verbatim function by function
 where the port keeps only part of a module or ports the rest to PyTorch;
 the few lines where a copy must differ (a device in place of the TPU's
 interpret flag, the calibration record named by device) are listed here
@@ -30,10 +31,18 @@ ROOT = Path(__file__).resolve().parents[1]
 COPIED = [f"core/{m}" for m in (
     "errors", "gate_ir", "levelize", "packing", "opt", "spec", "cost_model",
     "calibrate", "scheduler", "verify", "partition", "optimizer", "compiler",
-    "artifact_store", "espresso", "simulator")] + ["flow/convert"]
+    "artifact_store", "espresso", "simulator", "verilog", "synth")] + [
+    "flow/convert", "models/config"] + [f"configs/{m}" for m in (
+        "qwen3_8b", "internlm2_20b", "minicpm_2b", "qwen3_32b",
+        "mixtral_8x7b", "grok1_314b", "mamba2_370m", "hubert_xlarge",
+        "internvl2_76b", "recurrentgemma_2b")]
 # modules the port copies in part: these top-level definitions verbatim
 COPIED_DEFS = {
-    "data/synthetic": ("make_binary_classification", "train_val_split"),
+    "data/synthetic": ("make_binary_classification", "train_val_split",
+                       "TokenPipeline", "synthetic_tokens"),
+    "configs/registry": ("ARCH_IDS", "get_config", "ShapeCell", "SHAPES",
+                         "cell_supported", "all_cells"),
+    "serve/batcher": ("Request", "RequestBatcher", "SlotTable"),
     "core/nullanet": ("ENUM_LIMIT", "neuron_isf", "neuron_enumerated",
                       "layer_to_graph", "LogicNetwork", "BinaryMLPConfig"),
     "flow/classifier": ("input_bits", "hard_forward"),
@@ -45,6 +54,9 @@ COPIED_DEFS = {
 # text -> port text), each definition as a whole; in a module of COPIED
 # the rest of the file stays verbatim too
 ADAPTED_DEFS = {
+    # the registry imports this package's config modules
+    ("configs/registry", "_MODULES"): [
+        ('"repro.configs." + a', '"repro_torch.configs." + a')],
     # they take the parameters to the host, so torch tensors on the card
     # convert as they are
     ("core/nullanet", "mlp_to_logic_network"): [
@@ -75,7 +87,8 @@ ADAPTED_DEFS = {
         ("_, phases = phased_infer_bits(prog, bits, interpret=interpret)",
          "_, phases = phased_infer_bits(prog, bits, device=device)")],
     # the calibration warm start loads this device's record ("torch-cuda"
-    # or "torch-cpu"), never the reference's "default" (a TPU's fit)
+    # or "torch-cpu"), never the reference's "default" (a TPU's fit); the
+    # cache records that device, and an engine on another refuses it
     ("serve/logic_engine", "ProgramCache"): [
         ("store: ArtifactStore | None = None):",
          "store: ArtifactStore | None = None, device=None):"),
@@ -84,8 +97,21 @@ ADAPTED_DEFS = {
          """persisted fit for the
         # device its engines run on (``ops.calibration_name``), so a
         # fresh process"""),
+        ("        self.store = store\n",
+         "        self.store = store\n"
+         "        # The device whose calibration record a store-backed cache "
+         "loads;\n"
+         "        # an engine on another device refuses the cache "
+         "(LogicEngine).\n"
+         "        # None when neither a store nor a device is named: nothing "
+         "in the\n"
+         "        # cache then depends on a device.\n"
+         "        self.device = None if store is None and device is None "
+         "else \\\n"
+         "            resolve_device(device)\n"),
         ("store.load_calibration()",
-         "store.load_calibration(\n                    calibration_name(device))")],
+         "store.load_calibration(\n"
+         "                    calibration_name(self.device))")],
 }
 IMPORT = re.compile(r"^(\s*)(from|import) repro\.", re.M)
 # ports guarded line by line against their reference module, import

@@ -31,7 +31,13 @@ from repro_torch.kernels.logic_dsp import ops
 from repro_torch.kernels.xnor_gemm import (pack_pm1, xnor_and_popc_ref,
                                            xnor_gemm, xnor_packed_ref)
 from repro_torch.kernels.xnor_gemm import kernel as _xk
-from repro_torch.serve import FrontDoor, LogicEngine, ProgramCache
+from repro_torch.serve import (FrontDoor, LogicEngine, ProgramCache,
+                               decode_step, init_decode_cache, prefill)
+from repro_torch.configs import get_config
+from repro_torch.examples import quickstart
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import logic_mlp
+from repro_torch.models.transformer import Transformer, init_params
 
 
 def _prog(seed=0, n_unit=8, n_gates=120, alloc="liveness"):
@@ -272,6 +278,29 @@ def test_flow_and_xnor_entry_points_raise_without_cuda_unless_cpu(no_cuda,
             mcfg, x, y, steps=2, batch=8, **kw),
         "hidden_bits": lambda **kw: clf.hidden_bits(x >= 0.5, "cuda", **kw),
         "run_flow": lambda **kw: run_flow(cfg, **kw),
+    }
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[entry]()
+    before = _k.launch_count()
+    calls[entry](device="cpu")
+    assert _k.launch_count() == before
+
+
+@pytest.mark.parametrize("entry", ["quickstart", "transformer",
+                                   "init_params", "init_decode_cache",
+                                   "launch_serve"])
+def test_quickstart_and_lm_entry_points_raise_without_cuda_unless_cpu(
+        no_cuda, entry):
+    cfg = get_config("qwen3-8b", smoke=True)
+    calls = {
+        "quickstart": lambda **kw: quickstart.run(**kw),
+        "transformer": lambda **kw: Transformer(cfg, **kw),
+        "init_params": lambda **kw: init_params(
+            cfg, torch.Generator().manual_seed(0), **kw),
+        "init_decode_cache": lambda **kw: init_decode_cache(cfg, 1, 8, **kw),
+        "launch_serve": lambda **kw: launch_serve.main(
+            ["--arch", "qwen3-8b", "--smoke", "--requests", "1",
+             "--max-new", "1"] + [f"--{k}={v}" for k, v in kw.items()]),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
@@ -539,3 +568,64 @@ def test_conversion_takes_parameters_trained_on_card(cuda):
     clf = build_classifier(params, 3, x, CompileSpec(n_unit=16))
     assert [c.graph.fingerprint() for c in clf.layers] == \
         [g.fingerprint() for g in want.graphs]
+
+
+@pytest.mark.cuda
+def test_quickstart_on_card(cuda):
+    """The quickstart's circuit through K1: one launch, equal to the plain
+    version, to direct evaluation and to the ground truth."""
+    _k.reset_launch_counts()
+    r = quickstart.run(device=cuda)
+    assert _k.launch_count("logic") == 1
+    plain = ops.logic_infer_bits(r["program"], r["x"], device=cuda,
+                                 use_ref=True)
+    np.testing.assert_array_equal(r["out"], plain)
+    np.testing.assert_array_equal(r["out"], r["graph"].evaluate(r["x"]))
+
+
+@pytest.mark.cuda
+def test_logic_ffn_on_card_matches_cpu(cuda):
+    """logic_ffn_apply on the card: one K1 launch, hidden bits equal to
+    the CPU's plain executor, output within float32 rounding."""
+    rng = np.random.default_rng(0)
+    p = {"w_in": torch.from_numpy(0.5 * rng.normal(size=(48, 24))).float(),
+         "b_in": torch.zeros(24),
+         "w_out": torch.from_numpy(0.1 * rng.normal(size=(24, 48))).float()}
+    calib = rng.integers(0, 2, (512, 48)).astype(np.uint8)
+    prog = logic_mlp.ffn_to_program(p, calib, CompileSpec(n_unit=16))
+    x = torch.from_numpy(rng.normal(size=(2, 80, 48))).float()
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    _k.reset_launch_counts()
+    h = logic_mlp.logic_hidden(prog, x.to(cuda))
+    y = logic_mlp.logic_ffn_apply(prog, pc, x.to(cuda))
+    assert _k.launch_count("logic") == 2
+    assert torch.equal(h.cpu(), logic_mlp.logic_hidden(prog, x))
+    torch.testing.assert_close(y.cpu(), logic_mlp.logic_ffn_apply(prog, p, x),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_prefill_decode_on_card_matches_forward_and_cpu(cuda):
+    """The dense smoke model in float32 on the card (TF32 off): prefill
+    plus decode against its own forward at 2e-3, and against the CPU's
+    logits at 1e-4."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = get_config("qwen3-8b", smoke=True)
+        cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        card = Transformer(cfg, device=cuda)
+        card.load_state_dict(cpu.state_dict())
+        toks = torch.from_numpy(
+            np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 16)))
+        full = card(toks.to(cuda))
+        torch.testing.assert_close(full.cpu(), cpu(toks), rtol=1e-4,
+                                   atol=1e-4)
+        lp, cache = prefill(card, toks[:, :12].to(cuda), context=16)
+        torch.testing.assert_close(lp, full[:, :12], rtol=2e-3, atol=2e-3)
+        for t in range(12, 16):
+            lg, cache = decode_step(card, toks[:, t:t + 1].to(cuda), cache)
+            torch.testing.assert_close(lg[:, 0], full[:, t], rtol=2e-3,
+                                       atol=2e-3)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

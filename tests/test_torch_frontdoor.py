@@ -434,8 +434,11 @@ def test_graceful_degradation_at_2x_load_with_faults(rng):
     carries a machine-readable shed reason, zero requests hang, every
     admitted request completes with its own tenant's bits (as the
     reference door serves them), and the traffic report carries the
-    serve.traffic.* counters.  The reference's latency bound reads the
-    wall clock and is held on the card by ``chip_smoke.py``."""
+    serve.traffic.* counters.  The reference's latency bound (admitted
+    p99 within 3 x the unloaded p99 + 75 ms) reads the wall clock, so it
+    is not held here: ``chip_smoke.py`` measures it on the card at the
+    reference's own 2x load point and reports pass or fail without gating
+    it, until the host-bound wave is fixed (ROADMAP queue 2 item 1)."""
     g_a = _graph(rng, n_in=14, n_gates=250, n_out=8)
     g_b = _graph(rng, n_in=10, n_gates=180, n_out=6)
     graphs = {"a": g_a, "b": g_b}

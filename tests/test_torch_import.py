@@ -13,7 +13,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
 # modules every walk must reach (the XNOR GEMM, the NullaNet flow, the
-# front door, its traffic, the tools and the serving examples)
+# front door, its traffic, the tools, the serving examples, the Verilog
+# front end and the quickstart, and the LM serving path)
 EXPECTED = ("repro_torch.kernels.native", "repro_torch.kernels.xnor_gemm.ops",
             "repro_torch.kernels.xnor_gemm.kernel",
             "repro_torch.kernels.xnor_gemm.ref", "repro_torch.data.synthetic",
@@ -24,7 +25,16 @@ EXPECTED = ("repro_torch.kernels.native", "repro_torch.kernels.xnor_gemm.ops",
             "repro_torch.tools.calibrate", "repro_torch.tools.precompile",
             "repro_torch.examples.serve_logic",
             "repro_torch.examples.serve_frontdoor",
-            "repro_torch.examples.warm_start")
+            "repro_torch.examples.warm_start",
+            "repro_torch.core.verilog", "repro_torch.core.synth",
+            "repro_torch.examples.quickstart",
+            "repro_torch.tools.verify_program",
+            "repro_torch.models.config", "repro_torch.models.layers",
+            "repro_torch.models.attention", "repro_torch.models.transformer",
+            "repro_torch.models.logic_mlp", "repro_torch.configs.registry",
+            "repro_torch.configs.qwen3_8b", "repro_torch.configs.minicpm_2b",
+            "repro_torch.serve.engine", "repro_torch.launch.serve",
+            "repro_torch.examples.serve_lm")
 
 
 def test_package_imports_without_jax_or_reference():
