@@ -56,10 +56,19 @@ front door's phase ends with the reference's own 2x load point, whose
 latency bound is reported, and the warm-start phase audits its store with
 ``repro_torch.tools.verify_program``.
 
+Then LM training.  ``train_full``: minicpm-2b at its full config (2.7 B
+parameters, bf16, float32 moments, remat "full", WSD) trained by
+``launch/train.py``'s Trainer for a few steps of 8 x 512 tokens with a
+checkpoint, one step profiled, then the loss on one fixed batch made to
+fall.  ``train_parity``: the same widths at 2 layers in float32, one step
+on the card against the CPU, and a resumed run against an unbroken one.
+``logic_swap_train``: the logic-FFN swap trained with STE, converted and
+served through K1, with its held-out agreement.
+
 Output, one JSON object per line: ``env``, ``build``, ``parity``,
 ``main_path``, ``timing``, ``engine``, ``xnor``, ``flow``, ``calibrate``,
-``frontdoor``, ``warm_start``, ``quickstart``, ``logic_ffn`` and ``lm``;
-then the
+``frontdoor``, ``warm_start``, ``quickstart``, ``logic_ffn``, ``lm``,
+``train_full``, ``train_parity`` and ``logic_swap_train``; then the
 card's name and power limit as nvidia-smi prints them; then a ``kernels``
 line (per kernel: its launches on the main paths, its largest difference
 from the plain version, its device time per call, the plain version's
@@ -165,6 +174,20 @@ LM_TRACED_STEPS = 8
 LOGIC_FFN = dict(n_layers=2, d_model=48, d_ff=24, n_heads=4, n_kv_heads=2,
                  head_dim=12, vocab_size=256, logic_mlp=True)
 LOGIC_FFN_CALIB, LOGIC_FFN_HELD_OUT, LOGIC_FFN_UNIT = 8, 1234, 16
+# LM training: minicpm-2b at its full config (bf16 params, float32
+# moments, remat "full", WSD) through launch/train.py's Trainer; the
+# fixed-batch descent check at a constant lr on a fresh optimizer state;
+# one step profiled.  MFU against the H100 SXM's dense bf16 peak.
+TRAIN_ARCH = "minicpm-2b"
+TRAIN_FULL = dict(steps=6, global_batch=8, seq_len=512, grad_accum=2)
+TRAIN_DESCENT_STEPS, TRAIN_DESCENT_LR = 4, 3e-4
+BF16_FLOPS_PER_S = 989e12
+# full width at 2 layers in float32 (TF32 off): one step on the card
+# against the same step on the CPU, then resume against an unbroken run
+TRAIN_PARITY = dict(n_layers=2, global_batch=2, seq_len=128, grad_accum=2,
+                    lr=1e-3)
+TRAIN_PARITY_RTOL = 1e-4             # loss and grad_norm, card vs CPU
+TRAIN_RESUME_RTOL = 1e-3             # |resumed - unbroken| / |update|
 
 
 def emit(obj: dict) -> None:
@@ -652,13 +675,17 @@ def run(args, torch) -> None:
     quick = quickstart_phase(torch, dev, smi)
     lffn = logic_ffn_phase(args, torch, dev, smi, cuda_ms)
     lm_phase(args, torch, dev, smi)
+    train_full_phase(args, torch, dev, smi)
+    train_parity_phase(args, torch, dev, smi)
+    lswap = logic_swap_train_phase(args, torch, dev, smi, cuda_ms)
     max_err["logic"] = max(max_err["logic"], quick["max_abs_err"],
-                           lffn["max_abs_err"])
+                           lffn["max_abs_err"], lswap["max_abs_err"])
     paths = {"fc1": launches, "xnor": xnor["launches"],
              "flow": flow["launches"], "flow_default": flow["default"]["launches"],
              "calibrate": calib["launches"], "frontdoor": door["launches"],
              "warm_start": warm["launches"], "quickstart": quick["launches"],
-             "logic_ffn": lffn["launches"]}
+             "logic_ffn": lffn["launches"],
+             "logic_swap_train": lswap["launches"]}
     check(xnor["launches"]["xnor"] == len(XNOR_SHAPES),
           "xnor_gemm made one K3 launch per full-width call")
 
@@ -1513,33 +1540,26 @@ def logic_ffn_phase(args, torch, dev, smi, cuda_ms) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.core.spec import CompileSpec
     from repro_torch.data import TokenPipeline
+    from repro_torch.examples import logic_mlp_swap as swap
     from repro_torch.kernels.logic_dsp import kernel as K
     from repro_torch.kernels.logic_dsp import ops
     from repro_torch.models import logic_mlp
-    from repro_torch.models.transformer import init_params
 
     cfg = get_config(LM_ARCH, smoke=True).with_(**LOGIC_FFN)
-    gen = torch.Generator(dev).manual_seed(args.seed)
-    model = init_params(cfg, gen, dev)
-    with torch.no_grad():
-        for blk in model.blocks:
-            blk.w_in.copy_(0.5 * torch.randn(blk.w_in.shape, generator=gen,
-                                             device=dev))
-            blk.b_in.zero_()
-            blk.w_out.copy_(0.1 * torch.randn(blk.w_out.shape,
-                                              generator=gen, device=dev))
+    model = swap.init_swap_model(cfg, args.seed, dev)
     pipe = TokenPipeline(cfg.vocab_size, 8, 32, seed=args.seed)
     calib = [torch.from_numpy(pipe.batch(900 + i)["tokens"]).to(dev)
              for i in range(LOGIC_FFN_CALIB)]
     held = torch.from_numpy(pipe.batch(LOGIC_FFN_HELD_OUT)["tokens"]).to(dev)
     d = cfg.d_model
     binary, captured = [], [[] for _ in model.blocks]
-    for tokens in calib:
-        ins = []
-        binary.append(model(tokens, ffn_inputs=ins))
-        for i, h in enumerate(ins):
-            captured[i].append(h.reshape(-1, d))
-    binary_held = model(held)
+    with torch.inference_mode():
+        for tokens in calib:
+            ins = []
+            binary.append(model(tokens, ffn_inputs=ins))
+            for i, h in enumerate(ins):
+                captured[i].append(h.reshape(-1, d))
+        binary_held = model(held)
 
     layers, t0 = [], time.perf_counter()
     for i, blk in enumerate(model.blocks):
@@ -1559,26 +1579,28 @@ def logic_ffn_phase(args, torch, dev, smi, cuda_ms) -> dict:
     t0 = time.perf_counter()
     K.reset_launch_counts()                     # logic-FFN path starts here
     logic, logic_inputs = [], []
-    for tokens in calib:
-        ins = []
-        logic.append(model(tokens, ffn_inputs=ins))
-        logic_inputs.append(ins)
-    held_inputs = []
-    logic_held = model(held, ffn_inputs=held_inputs)
+    with torch.inference_mode():
+        for tokens in calib:
+            ins = []
+            logic.append(model(tokens, ffn_inputs=ins))
+            logic_inputs.append(ins)
+        held_inputs = []
+        logic_held = model(held, ffn_inputs=held_inputs)
     torch.cuda.synchronize()
     launches = {k: K.launch_count(k) for k in ("logic", "mega", "xnor")}
     wall_s = time.perf_counter() - t0           # logic-FFN path ends here
 
     err, hidden_equal = 0, True
-    for ins in logic_inputs:
-        for blk, h in zip(model.blocks, ins):
-            words = ops.pack_bits((h.float() >= 0).reshape(-1, d))
-            k1 = ops.logic_forward(blk.program, words)
-            err = max(err, word_err(k1, ops.logic_forward(
-                blk.program, words, use_ref=True)))
-            hidden = ops.unpack_bits(k1, h.shape[0] * h.shape[1])
-            hidden_equal &= torch.equal(
-                hidden, logic_mlp.binary_hidden(blk.params(), h))
+    with torch.inference_mode():
+        for ins in logic_inputs:
+            for blk, h in zip(model.blocks, ins):
+                words = ops.pack_bits((h.float() >= 0).reshape(-1, d))
+                k1 = ops.logic_forward(blk.program, words)
+                err = max(err, word_err(k1, ops.logic_forward(
+                    blk.program, words, use_ref=True)))
+                hidden = ops.unpack_bits(k1, h.shape[0] * h.shape[1])
+                hidden_equal &= torch.equal(
+                    hidden, logic_mlp.binary_hidden(blk.params(), h))
     logit_err = max(float((a - b).abs().max()) for a, b in zip(logic,
                                                               binary))
     vocab = cfg.vocab_size
@@ -1657,12 +1679,13 @@ def lm_phase(args, torch, dev, smi) -> dict:
     P = S - LM_PARITY_DECODE
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))).to(dev)
     t0 = time.perf_counter()
-    full = model(toks)
-    lp, cache = prefill(model, toks[:, :P], context=S)
-    pairs = [(lp, full[:, :P])]
-    for t in range(P, S):
-        lg, cache = decode_step(model, toks[:, t:t + 1], cache)
-        pairs.append((lg[:, 0], full[:, t]))
+    with torch.inference_mode():
+        full = model(toks)
+        lp, cache = prefill(model, toks[:, :P], context=S)
+        pairs = [(lp, full[:, :P])]
+        for t in range(P, S):
+            lg, cache = decode_step(model, toks[:, t:t + 1], cache)
+            pairs.append((lg[:, 0], full[:, t]))
     torch.cuda.synchronize()
     parity_s = time.perf_counter() - t0
     tol = LM_PARITY_TOL
@@ -1709,7 +1732,7 @@ def lm_phase(args, torch, dev, smi) -> dict:
                 model, torch.tensor([[tok]], device=dev), state["cache"])
             tok = int(torch.argmax(logits[0, -1]))
 
-    wall_us, busy_us, by_name = traced(torch, decode_loop)
+    wall_us, busy_us, by_name, _ = traced(torch, decode_loop)
     host = decode_step_host_profile(torch, model, state["cache"], dev)
     # what one decode step must read: every block weight, the final norm
     # and the LM head once, one embedding row
@@ -1761,6 +1784,421 @@ def lm_phase(args, torch, dev, smi) -> dict:
     return out
 
 
+def saved_signal_handlers():
+    """The SIGTERM and SIGINT handlers now (a Trainer's PreemptionGuard
+    replaces both); :func:`restore_signal_handlers` puts them back."""
+    import signal
+    return {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
+
+
+def restore_signal_handlers(saved: dict) -> None:
+    import signal
+    for s, h in saved.items():
+        signal.signal(s, h)
+
+
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+def timed_saves(trainer) -> list:
+    """Wrap ``trainer.ckpt.save`` to record (seconds, step) of each
+    save; returns the list it fills."""
+    saves, save = [], trainer.ckpt.save
+
+    def timed(step, *a, **kw):
+        t0 = time.perf_counter()
+        save(step, *a, **kw)
+        saves.append((time.perf_counter() - t0, step))
+
+    trainer.ckpt.save = timed
+    return saves
+
+
+def need_disk(path, nbytes: int, what: str) -> dict:
+    """Fail loudly before writing ``nbytes`` of checkpoints where they do
+    not fit (with a 10% margin)."""
+    import shutil
+    free = shutil.disk_usage(path).free
+    check(free > 1.1 * nbytes,
+          f"{what}: {nbytes / 1e9:.1f} GB of checkpoints need room; "
+          f"{free / 1e9:.1f} GB free under {path}")
+    return {"free_bytes": free, "need_bytes": nbytes}
+
+
+def profile_step(torch, fn) -> dict:
+    """One call of ``fn`` under torch.profiler: its wall time, the
+    device's busy time and idle share, the kernel launches the host made
+    and the device time of the largest kernels."""
+    wall_us, busy_us, by_name, launches = traced(torch, fn)
+    return {"wall_ms": wall_us / 1e3, "kernel_launches": launches,
+            "device_busy_ms": None if busy_us is None else busy_us / 1e3,
+            "device_idle_share": (None if busy_us is None
+                                  else 1 - busy_us / wall_us),
+            "device_ms_by_name": dict(by_name[:6])}
+
+
+def train_full_phase(args, torch, dev, smi) -> dict:
+    """LM training at full size: minicpm-2b's own config (40 layers, d
+    2304, 36 heads, vocab 122,753 padded to 122,880, tied embeddings,
+    bf16 parameters, float32 moments, remat "full", its WSD schedule),
+    built by ``launch/train.py`` from its flags and run by its Trainer for
+    ``TRAIN_FULL`` steps (global batch 8 x 512 tokens, 2 micro-batches),
+    the final checkpoint written to a temporary directory (the free disk
+    checked first) and removed after.  Gated: every loss and grad norm
+    finite; one more gradient finite and non-zero in every leaf; on one
+    fixed batch, at a constant lr from a fresh optimizer state, the loss
+    after ``TRAIN_DESCENT_STEPS`` steps below the first.  Reported: the
+    parameter count, peak device memory, step time p50/p90, tokens/s, MFU
+    (6 N tokens over the step at the bf16 peak) beside the step's floors,
+    one step's launches and the device's idle share (profiler), and the
+    checkpoint's bytes and seconds."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.transformer import train_loss
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import TrainConfig, make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    tf = TRAIN_FULL
+    n = cfg.param_count()
+    tokens = tf["global_batch"] * tf["seq_len"]
+    # the checkpoint: bf16 parameters in their 16 bits, float32 moments
+    ckpt_need = n * (2 + 4 + 4)
+    out = {"phase": "train_full", "nvidia_smi": smi, "model": cfg.name,
+           "config": {k: getattr(cfg, k) for k in (
+               "n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
+               "d_ff", "vocab_size", "tie_embeddings", "param_dtype",
+               "compute_dtype", "moment_dtype", "remat")},
+           "padded_vocab": cfg.padded_vocab, "params": n, **tf,
+           "tokens_per_step": tokens,
+           "disk": need_disk(scratch_dir(), ckpt_need, "train_full")}
+    ckdir = tempfile.mkdtemp(prefix="train_full.", dir=scratch_dir())
+    handlers = saved_signal_handlers()
+    try:
+        trainer, targs = launch_train.build([
+            "--arch", TRAIN_ARCH, "--steps", str(tf["steps"]),
+            "--global-batch", str(tf["global_batch"]),
+            "--seq-len", str(tf["seq_len"]),
+            "--grad-accum", str(tf["grad_accum"]),
+            "--checkpoint-dir", ckdir,
+            "--checkpoint-every", str(10 * tf["steps"]),
+            "--device", str(dev)])
+        saves = timed_saves(trainer)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        hist = trainer.run(tf["steps"], log_every=0)
+        run_s = time.perf_counter() - t0
+        peak_run = torch.cuda.max_memory_allocated(dev)
+        model, opt = trainer.model, trainer.opt
+        step_s = np.asarray([h["seconds"] for h in hist[1:]])
+        p50 = float(np.median(step_s))
+        flops6 = 6 * n * tokens
+        out["train"] = {
+            "schedule": trainer.tc.schedule, "lr": [h["lr"] for h in hist],
+            "loss": [h["loss"] for h in hist],
+            "grad_norm": [h["grad_norm"] for h in hist],
+            "first_step_s": hist[0]["seconds"],
+            "step_s_p50": p50, "step_s_p90": float(np.percentile(step_s,
+                                                                   90)),
+            "tokens_per_s": tokens / p50,
+            "mfu": flops6 / p50 / BF16_FLOPS_PER_S,
+            "floor_ms_6nt": flops6 / BF16_FLOPS_PER_S * 1e3,
+            "floor_ms_8nt_remat": 8 * n * tokens / BF16_FLOPS_PER_S * 1e3,
+            # the update reads p (2), the float32 grad, mu, nu (4 each),
+            # writes p, mu, nu
+            "optimizer_floor_ms": n * 24 / HBM_BYTES_PER_S * 1e3,
+            "run_s": run_s, "max_memory_allocated": peak_run,
+            # the config's count is the published one (vocab 122,753);
+            # the model holds the padded vocab's rows
+            "params_allocated": sum(p.numel() for p in model.parameters()),
+            "param_bytes": sum(p.numel() * p.element_size()
+                               for p in model.parameters()),
+            "moment_bytes": sum(m.numel() * m.element_size() for m in
+                                (*opt.mu.values(), *opt.nu.values()))}
+        out["checkpoint"] = {"bytes": dir_bytes(ckdir), "saves": [
+            {"seconds": t, "step": st} for t, st in saves],
+            "expected_bytes": ckpt_need}
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+        batch = trainer.batch(trainer.step)
+        out["profiled_step"] = profile_step(
+            torch, lambda: trainer.train_step(model, opt, batch))
+        trainer.opt = opt = None            # the descent starts afresh
+
+        mb = {"tokens": batch["tokens"][:tf["global_batch"] //
+                                        tf["grad_accum"]]}
+        params = dict(model.named_parameters())
+        grads = torch.autograd.grad(train_loss(model, mb),
+                                    list(params.values()))
+        finite = [bool(torch.isfinite(g).all()) for g in grads]
+        nonzero = [bool(g.any()) for g in grads]
+        out["grads"] = {"leaves": len(grads), "finite": sum(finite),
+                        "nonzero": sum(nonzero),
+                        "zero_leaves": [k for k, z in zip(params, nonzero)
+                                        if not z][:5]}
+        del grads
+
+        step = make_train_step(cfg, TrainConfig(
+            lr=TRAIN_DESCENT_LR, schedule="const",
+            grad_accum=tf["grad_accum"]))
+        opt = adamw_init(params, trainer.moment_dtype)
+        fixed = trainer.batch(0)
+        descent = []
+        for _ in range(TRAIN_DESCENT_STEPS):
+            model, opt, m = step(model, opt, fixed)
+            descent.append(float(m["loss"]))
+        out["descent"] = {"lr": TRAIN_DESCENT_LR, "batch": 0,
+                          "loss": descent}
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    finally:
+        restore_signal_handlers(handlers)
+        shutil.rmtree(ckdir, ignore_errors=True)
+    emit(out)
+    tr = out["train"]
+    check(all(math.isfinite(v) for v in tr["loss"] + tr["grad_norm"]),
+          "train_full: every loss and grad norm is finite")
+    g = out["grads"]
+    check(g["finite"] == g["leaves"] == g["nonzero"],
+          f"train_full: every leaf's gradient is finite and non-zero: {g}")
+    check(descent[-1] < descent[0],
+          f"train_full: the fixed-batch loss falls: {descent}")
+    check(out["checkpoint"]["saves"] and
+          out["checkpoint"]["saves"][-1]["step"] == tf["steps"],
+          "train_full: the final checkpoint was written")
+    del trainer, model, opt, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_parity_phase(args, torch, dev, smi) -> dict:
+    """minicpm-2b at full width and ``TRAIN_PARITY["n_layers"]`` layers in
+    float32 (TF32 off).  (a) One ``make_train_step`` on the card against
+    the same step on the CPU from the same parameters and batch (2
+    micro-batches, WSD): ``loss`` and ``grad_norm`` within
+    ``TRAIN_PARITY_RTOL`` (gated; float32 sums in another order), the
+    parameters' largest difference reported.  (b) Resume: a Trainer runs
+    4 steps in one go; another runs 2, checkpoints, and a fresh Trainer
+    resumes for 2 more.  Gated: the resumed run reaches step 4 and its
+    parameters differ from the unbroken run's by at most
+    ``TRAIN_RESUME_RTOL`` of the 4 steps' update (norms over every
+    parameter): bit equality is not required, the card's kernels may
+    accumulate in another order from run to run."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models.transformer import Transformer, init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import TrainConfig, Trainer, make_train_step
+
+    tp = TRAIN_PARITY
+    cfg = get_config(TRAIN_ARCH).with_(
+        n_layers=tp["n_layers"], param_dtype="float32",
+        compute_dtype="float32")
+    n = cfg.param_count()
+    out = {"phase": "train_parity", "nvidia_smi": smi, "model": cfg.name,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab_size": cfg.vocab_size, "dtype": "float32",
+           "allow_tf32": False, "params": n, **tp,
+           "disk": need_disk(scratch_dir(), 3 * n * 12, "train_parity")}
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    handlers = saved_signal_handlers()
+    ckdir = tempfile.mkdtemp(prefix="train_parity.", dir=scratch_dir())
+    try:
+        tc = TrainConfig(lr=tp["lr"], warmup_steps=1, total_steps=10,
+                         schedule="wsd", grad_accum=tp["grad_accum"],
+                         seed=args.seed, checkpoint_every=100)
+        # (a) card against CPU
+        card = init_params(cfg, torch.Generator(dev).manual_seed(args.seed),
+                           dev)
+        host = Transformer(cfg, "cpu")
+        host.load_state_dict(card.state_dict())
+        tokens = TokenPipeline(cfg.vocab_size, tp["global_batch"],
+                               tp["seq_len"], seed=args.seed).batch(0)[
+                                   "tokens"]
+        step = make_train_step(cfg, tc)
+        res = {}
+        for name, model in (("cuda", card), ("cpu", host)):
+            opt = adamw_init(dict(model.named_parameters()))
+            t0 = time.perf_counter()
+            _, opt, m = step(model, opt, {"tokens": torch.from_numpy(
+                tokens).to(model.device)})
+            res[name] = {k: float(v) for k, v in m.items()}
+            res[name]["seconds"] = time.perf_counter() - t0
+        diff = max(float((a.detach().cpu() - b.detach()).abs().max())
+                   for a, b in zip(card.parameters(), host.parameters()))
+        out["step"] = {**res, "params_max_abs_diff": diff,
+                       "rtol": TRAIN_PARITY_RTOL}
+        del card, host, opt
+        torch.cuda.empty_cache()
+
+        # (b) resume against an unbroken run
+        def trainer(sub):
+            return Trainer(cfg, TrainConfig(**{
+                **tc.__dict__, "checkpoint_dir": str(Path(ckdir) / sub)}),
+                dev, tp["global_batch"], tp["seq_len"])
+
+        whole = trainer("whole")
+        t0 = time.perf_counter()
+        whole.run(4, log_every=0)
+        whole_s = time.perf_counter() - t0
+        init, _ = whole.init_state()
+        trainer("split").run(2, log_every=0)
+        resumed = trainer("split")
+        resumed.run(2, log_every=0)
+        def sq(ts):
+            return sum(float(t.double().square().sum()) for t in ts)
+
+        final, again = (list(t.model.parameters()) for t in (whole,
+                                                             resumed))
+        with torch.no_grad():
+            gap = math.sqrt(sq(a - b for a, b in zip(final, again)))
+            update = math.sqrt(sq(a - b for a, b in zip(
+                final, init.parameters())))
+            max_diff = max(float((a - b).abs().max())
+                           for a, b in zip(final, again))
+        out["resume"] = {
+            "steps": [whole.step, resumed.step],
+            "opt_steps": [whole.opt.step, resumed.opt.step],
+            "bit_equal": all(torch.equal(a, b) for a, b in zip(final,
+                                                                again)),
+            "max_abs_diff": max_diff,
+            "diff_norm": gap, "update_norm": update,
+            "relative": gap / update, "rtol": TRAIN_RESUME_RTOL,
+            "whole_run_s": whole_s,
+            "checkpoint_bytes": dir_bytes(Path(ckdir) / "split")}
+        del whole, resumed, init, final, again
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+        restore_signal_handlers(handlers)
+        shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    emit(out)
+    st = out["step"]
+    for k in ("loss", "grad_norm"):
+        check(math.isfinite(st["cuda"][k]) and
+              math.isclose(st["cuda"][k], st["cpu"][k],
+                           rel_tol=TRAIN_PARITY_RTOL),
+              f"train_parity: {k} on the card == on the CPU "
+              f"({st['cuda'][k]} vs {st['cpu'][k]})")
+    r = out["resume"]
+    check(r["steps"] == [4, 4] and r["opt_steps"] == [4, 4],
+          f"train_parity: the resumed run reaches step 4: {r['steps']}")
+    check(r["relative"] <= TRAIN_RESUME_RTOL,
+          f"train_parity: resumed == unbroken run ({r['relative']})")
+    return out
+
+
+def logic_swap_train_phase(args, torch, dev, smi, cuda_ms) -> dict:
+    """The paper's technique in a trained LM on the card: the port's
+    ``examples/logic_mlp_swap`` flow at the reference example's widths
+    (2 layers, d_model 48, d_ff 24, vocab 256): STE training (150 steps,
+    lr 2e-3, ``TokenPipeline(256, 8, 32)``), the FFN inputs captured from
+    8 calibration batches (900..907), ``ffn_to_program`` at ``n_unit``
+    16, then the logic model (K1 for every FFN's hidden layer) on the
+    calibration batches and the held-out batch 1234.  Gated: K1 launched
+    once per layer and batch; its hidden bits equal the plain executor's
+    and ``binary_hidden``'s in both layers on every calibration batch; the
+    logits equal the STE model's there (1e-6).  Reported: the loss before
+    and after training, gates and steps per layer, conversion seconds,
+    K1's device ms per call, and the held-out loss and argmax agreement,
+    STE against logic, beside the untrained ``logic_ffn`` phase's."""
+    import numpy as np
+
+    from repro_torch.examples import logic_mlp_swap as swap
+    from repro_torch.kernels.logic_dsp import kernel as K
+    from repro_torch.kernels.logic_dsp import ops
+    from repro_torch.models import logic_mlp
+
+    cfg = swap.swap_config()
+    model = swap.init_swap_model(cfg, args.seed, dev)
+    pipe = swap.pipeline(cfg, args.seed)
+    t0 = time.perf_counter()
+    losses = swap.train_ste(model, pipe, swap.STEPS, swap.LR,
+                            log=lambda *_: None)
+    train_s = time.perf_counter() - t0
+    calib = [swap.tokens_of(pipe, swap.CALIB_FIRST + i, dev)
+             for i in range(swap.CALIB_BATCHES)]
+    held_tokens = swap.tokens_of(pipe, swap.HELD_OUT, dev)
+    t0 = time.perf_counter()
+    layers = swap.convert(model, swap.capture_bits(model, calib),
+                          log=lambda *_: None)
+    convert_s = time.perf_counter() - t0
+    programs = [blk.program for blk in model.blocks]
+
+    t0 = time.perf_counter()
+    K.reset_launch_counts()                 # trained logic path starts here
+    logic, logic_inputs = [], []
+    for tokens in calib:
+        ins = []
+        logic.append(swap.forward_with(model, tokens, programs,
+                                       ffn_inputs=ins))
+        logic_inputs.append(ins)
+    held_inputs = []
+    swap.forward_with(model, held_tokens, programs, ffn_inputs=held_inputs)
+    torch.cuda.synchronize()
+    launches = {k: K.launch_count(k) for k in ("logic", "mega", "xnor")}
+    wall_s = time.perf_counter() - t0        # trained logic path ends here
+
+    d = cfg.d_model
+    err, hidden_equal = 0, True
+    with torch.inference_mode():
+        for ins in logic_inputs:
+            for blk, h in zip(model.blocks, ins):
+                words = ops.pack_bits((h.float() >= 0).reshape(-1, d))
+                k1 = ops.logic_forward(blk.program, words)
+                err = max(err, word_err(k1, ops.logic_forward(
+                    blk.program, words, use_ref=True)))
+                hidden = ops.unpack_bits(k1, h.shape[0] * h.shape[1])
+                hidden_equal &= torch.equal(
+                    hidden, logic_mlp.binary_hidden(blk.params(), h))
+    ste = [swap.forward_with(model, t, [None] * len(programs))
+           for t in calib]
+    logit_err = max(float((a - b).abs().max()) for a, b in zip(logic, ste))
+    held = swap.compare(model, programs, held_tokens)
+
+    prog = programs[0]
+    words = ops.pack_bits((held_inputs[0].float() >= 0).reshape(-1, d))
+    a = ops.program_arrays(prog, dev)
+    k1_call = (lambda: K.logic_cuda_call(a["rec"], words, a["output_addrs"],
+                                         n_addr=prog.n_addr, plan=a["plan"]))
+    out = {"phase": "logic_swap_train", "nvidia_smi": smi,
+           "model": f"{cfg.name} at the logic_mlp_swap widths",
+           "config": {k: getattr(cfg, k) for k in swap.SWAP},
+           "steps": swap.STEPS, "lr": swap.LR, "train_s": train_s,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "loss_last10_mean": float(np.mean(losses[-10:])),
+           "calibration_batches": swap.CALIB_BATCHES, "n_unit": swap.N_UNIT,
+           "layers": layers, "convert_s": convert_s,
+           "hidden_bits_equal": hidden_equal, "max_abs_err": err,
+           "tolerance": 0, "logits_max_abs_diff": logit_err,
+           "logits_tolerance": 1e-6, "held_out": held,
+           "k1_words": words.shape[1],
+           "k1_device_ms": device_ms_per_call(torch, k1_call, 50),
+           "k1_plain_ms": cuda_ms(lambda: ops.logic_forward(
+               prog, words, use_ref=True), 3, warmup=1),
+           "k1_scratch": a["plan"].scratch, "wall_s": wall_s,
+           "launches": launches}
+    emit(out)
+    check(all(math.isfinite(v) for v in losses),
+          "logic_swap_train: every STE loss is finite")
+    check(err == 0 and hidden_equal,
+          "logic_swap_train: K1's hidden bits == plain == binary_ffn's")
+    check(logit_err <= 1e-6,
+          f"logic_swap_train: logits == the STE model's ({logit_err})")
+    check(launches["logic"] == cfg.n_layers * (swap.CALIB_BATCHES + 1) and
+          launches["mega"] == 0,
+          f"logic_swap_train: one K1 launch per layer and batch: {launches}")
+    return out
+
+
 def decode_step_host_profile(torch, model, cache, dev) -> dict:
     """One more decode step under torch.profiler: the kernels it launches,
     the host's wall time for it (profiled), and the operators with the
@@ -1796,8 +2234,8 @@ def scratch_dir() -> Path:
 def traced(torch, fn):
     """Run ``fn`` under torch.profiler; returns the wall time (us), the
     union of the device's busy intervals (us; None when the trace holds no
-    device work) and device time by kernel name (ms): see
-    :func:`device_busy`."""
+    device work), device time by kernel name (ms; see
+    :func:`device_busy`) and the kernel launches the host made."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1807,7 +2245,9 @@ def traced(torch, fn):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     busy_us, by_name = device_busy(prof)
-    return wall_us, busy_us, by_name
+    launches = sum(a.count for a in prof.key_averages()
+                   if "LaunchKernel" in a.key)
+    return wall_us, busy_us, by_name, launches
 
 
 def device_busy(prof):
@@ -1840,7 +2280,7 @@ def profile_waves(torch, serve_all) -> dict:
     time and idle share, the mega kernel's device time per wave, and
     device time by kernel name (the five largest)."""
     waves = []
-    wall_us, busy_us, by_name = traced(
+    wall_us, busy_us, by_name, _ = traced(
         torch, lambda: waves.extend(serve_all()))
     kernel_ms = sum(ms for name, ms in by_name if "mega_kernel" in name)
     return {"waves": len(waves), "wall_ms": wall_us / 1e3,
@@ -1855,7 +2295,7 @@ def device_ms_per_call(torch, fn, calls: int) -> float | None:
     """The device's busy time per call of ``fn`` over ``calls`` calls back
     to back (profiler trace), after one untraced warm-up call."""
     fn()
-    _, busy_us, _ = traced(torch, lambda: [fn() for _ in range(calls)])
+    _, busy_us, _, _ = traced(torch, lambda: [fn() for _ in range(calls)])
     return None if busy_us is None else busy_us / 1e3 / calls
 
 

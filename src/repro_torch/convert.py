@@ -19,7 +19,10 @@ cross as plain data — numpy arrays, ints, strings and dicts, never
   parameter tree (``models/transformer.init_params``'s, as numpy, the
   ``blocks`` stacked on a leading layer axis; with ``cfg.logic_mlp`` the
   blocks carry the logic FFN's ``w_in``, ``b_in`` and ``w_out``) into the
-  state dict of the port's ``Transformer``.
+  state dict of the port's ``Transformer``;
+* :func:`adamw_state_from_reference` turns the reference's ``AdamWState``
+  (``step``, and ``mu`` / ``nu`` trees like the parameters) into the
+  port's, keyed by the same state-dict names.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from repro_torch.core.scheduler import LogicProgram
 from repro_torch.core.spec import CompileSpec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import block_param_spec, param_spec
+from repro_torch.optim.adamw import AdamWState, resolve_moment_dtype
 
 
 def program_from_reference(arrays: dict, scalars: dict) -> LogicProgram:
@@ -127,6 +131,22 @@ def transformer_params_from_reference(params: dict,
         for i in range(cfg.n_layers):
             out[f"blocks.{i}.{k}"] = stacked[i]
     return out
+
+
+def adamw_state_from_reference(state, cfg: ModelConfig) -> AdamWState:
+    """The port's :class:`AdamWState` from the reference's ``(step, mu,
+    nu)``, its moment trees as numpy: the stacked ``blocks`` split per
+    layer as in :func:`transformer_params_from_reference`, each moment in
+    ``cfg.moment_dtype`` on the CPU."""
+    step, mu, nu = state
+    dt = resolve_moment_dtype(cfg.moment_dtype)
+
+    def moments(tree):
+        return {k: v.to(dt) for k, v in
+                transformer_params_from_reference(tree, cfg).items()}
+
+    return AdamWState(step=int(np.asarray(step)), mu=moments(mu),
+                      nu=moments(nu))
 
 
 def _leaf(a, shape, name: str) -> torch.Tensor:

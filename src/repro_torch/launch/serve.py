@@ -25,12 +25,14 @@ from repro_torch.models.transformer import Transformer, init_params
 from repro_torch.serve import Request, RequestBatcher, decode_step, prefill
 
 
+@torch.inference_mode()
 def serve(model: Transformer, prompts, *, batch_size: int, max_new: int,
           context: int) -> dict:
     """Serve one request per prompt through a :class:`RequestBatcher` of
     ``batch_size`` slots.  Returns the finished requests and the host
     clock's seconds: the whole loop, each prefill (to the device's end)
-    and each decode step (ended by reading its token on the host)."""
+    and each decode step (ended by reading its token on the host).  Runs
+    under ``torch.inference_mode()``."""
     batcher = RequestBatcher(batch_size)
     for uid, prompt in enumerate(prompts):
         batcher.submit(Request(uid=uid, prompt=prompt,

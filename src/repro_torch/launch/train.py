@@ -1,0 +1,71 @@
+"""Training launcher.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm-2b \\
+        --smoke --steps 100 --global-batch 8 --seq-len 128 [--device cpu]
+
+The port's counterpart of ``src/repro/launch/train.py`` on one device
+(``--device``: CUDA unless ``cpu``), with the reference's flags and the
+architecture's own ``LR_SCHEDULE`` (minicpm's WSD; cosine otherwise).
+``--model-parallel`` above 1 is refused: the sharded trainer is ROADMAP
+queue 1 item 3.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib
+
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.configs.registry import _MODULES
+from repro_torch.train import TrainConfig, Trainer
+from repro_torch.train.trainer import _default_checkpoint_dir
+
+
+def build(argv=None) -> tuple[Trainer, argparse.Namespace]:
+    """Parse the launcher's flags and build its :class:`Trainer`."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True, choices=ARCH_IDS)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config (CPU-runnable)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--compress-grads", action="store_true")
+    ap.add_argument("--checkpoint-dir", default=_default_checkpoint_dir())
+    ap.add_argument("--checkpoint-every", type=int, default=50)
+    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--device", default=None,
+                    help="where the model trains: CUDA unless 'cpu'")
+    args = ap.parse_args(argv)
+    if args.model_parallel > 1:
+        ap.error("--model-parallel > 1 needs the sharded trainer, which "
+                 "is not ported yet (ROADMAP queue 1 item 3); the port "
+                 "trains on one device")
+
+    cfg = get_config(args.arch, smoke=args.smoke)
+    # arch-specific recipe (e.g. minicpm's WSD schedule)
+    mod = importlib.import_module(_MODULES[args.arch])
+    schedule = getattr(mod, "LR_SCHEDULE", "cosine")
+
+    tc = TrainConfig(
+        lr=args.lr, total_steps=args.steps,
+        warmup_steps=max(1, args.steps // 10), schedule=schedule,
+        grad_accum=args.grad_accum, compress_grads=args.compress_grads,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every)
+    return Trainer(cfg, tc, args.device, args.global_batch,
+                   args.seq_len), args
+
+
+def main(argv=None) -> list[dict]:
+    trainer, args = build(argv)
+    history = trainer.run(args.steps)
+    if history:
+        print(f"final loss: {history[-1]['loss']:.4f} "
+              f"(from {history[0]['loss']:.4f})")
+    return history
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,6 @@
 """FFCL-substituted FFN: the paper's technique inside a transformer block.
 
-Port of ``src/repro/models/logic_mlp.py``, inference half.  With
+Port of ``src/repro/models/logic_mlp.py``.  With
 ``cfg.logic_mlp = True`` a block's FFN is a *binarized* MLP
 (NullaNet-compatible): the block input is binarized at a sign boundary,
 the hidden activation is binary, and only the output projection is
@@ -19,9 +19,13 @@ reference calls the plain executor even on its device, to stay jit-able
 inside a transformer forward; PyTorch runs eagerly, so the port launches
 the kernel.
 
-The straight-through gradient of the reference's ``binary_ffn`` (training)
-comes with the port's training slice; its forward value is the hard
-threshold computed here.
+Training uses the straight-through estimator of the reference's
+``_ste01`` (an ``autograd.Function``): its forward is the exact hard
+threshold ``y >= 0`` (the reference's ``soft + stop_gradient(hard - soft)``
+equals it only up to float rounding, and the logic fabric must reproduce
+the binary model's hidden bits exactly), and its backward is the soft
+surrogate's derivative ``0.5 * (1 - tanh(y)**2)``, the reference's
+gradient.
 """
 from __future__ import annotations
 
@@ -39,6 +43,27 @@ def _host(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):
         return a.detach().float().cpu().numpy()
     return np.asarray(a, dtype=np.float32)
+
+
+class _STE01(torch.autograd.Function):
+    """(y >= 0) as y's dtype, with the gradient of 0.5 * (tanh(y) + 1)."""
+
+    @staticmethod
+    def forward(ctx, y):
+        ctx.save_for_backward(y)
+        return (y >= 0).to(y.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        t = torch.tanh(y)
+        return (0.5 * g * (1.0 - t * t)).to(y.dtype)
+
+
+def ste01(y: torch.Tensor) -> torch.Tensor:
+    """The straight-through binarizer: exact {0, 1} forward, the soft
+    surrogate's gradient backward."""
+    return _STE01.apply(y)
 
 
 def binary_hidden(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -63,9 +88,13 @@ def _project(h: torch.Tensor, p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def binary_ffn(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """The binarized FFN (the reference's inference path): x (..., D) ->
-    y (..., D) in x's dtype, computed in float32."""
-    return _project(binary_hidden(p, x), p, x)
+    """The STE-binarized FFN (training and the reference inference path):
+    x (..., D) -> y (..., D) in x's dtype, computed in float32 over the
+    flattened samples.  Its hidden layer equals :func:`binary_hidden`'s
+    bits; gradients flow through both thresholds by the STE."""
+    xb = ste01(x.float().reshape(-1, x.shape[-1]))
+    h = ste01((2.0 * xb - 1.0) @ p["w_in"].float() + p["b_in"].float())
+    return _project(h, p, x)
 
 
 def ffn_to_program(p: dict, calib_bits, spec: CompileSpec | None = None,

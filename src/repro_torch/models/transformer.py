@@ -1,4 +1,5 @@
-"""The dense transformer: parameters, forward and logits.
+"""The dense transformer: parameters, forward, logits and the training
+loss.
 
 Port of ``src/repro/models/transformer.py`` for ``family="dense"``
 (llama/qwen-style GQA + SwiGLU, qk-norm, tied embeddings for minicpm) as a
@@ -15,23 +16,39 @@ With ``cfg.logic_mlp`` a block's FFN is the binarized MLP of
 ``binary_ffn`` until the block is given a compiled program
 (``block.program``), and ``logic_ffn_apply`` (K1 on the card) after.
 
-Dropped, because single-device serving has no use for them: ``constrain``
-(sharding annotations), ``remat`` (activation checkpointing for training)
-and ``seq_parallel`` (sequence-sharded activations); the layer scan is a
-Python loop over the blocks.  Any other family raises
+The forward records autograd only where grad is enabled and the
+parameters ask for it: the model is built with ``requires_grad`` off, the
+trainer turns it on, and the serving paths run under
+``torch.inference_mode()``.  ``cfg.remat`` (the reference's
+``_maybe_remat``) applies while grad is enabled: ``"full"`` checkpoints
+each block (``torch.utils.checkpoint``, non-reentrant), ``"dots"`` saves
+only the matrix products' outputs and recomputes the rest, ``"none"`` is
+the plain loop.  :func:`train_loss` is the reference's next-token loss of
+the dense family.
+
+Dropped, because one device has no use for them: ``constrain`` (sharding
+annotations) and ``seq_parallel`` (sequence-sharded activations); they
+come with the sharded trainer (ROADMAP queue 1 item 3).  The layer scan
+is a Python loop over the blocks.  Any other family raises
 ``NotImplementedError``: the MoE, SSM, hybrid, audio and VLM families are
 ROADMAP queue 1 item 5.
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.kernels.logic_dsp.ops import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (DTYPES, normal_init, ones_init,
-                                       rms_norm, swiglu, zeros_init)
+                                       rms_norm, softmax_xent, swiglu,
+                                       zeros_init)
 from repro_torch.models.logic_mlp import binary_ffn, logic_ffn_apply
 
 
@@ -165,20 +182,28 @@ class Transformer(nn.Module):
                      ) -> tuple[torch.Tensor, torch.Tensor]:
         """tokens (B, S) -> (x (B, S, D), positions (B, S))."""
         tokens = torch.as_tensor(tokens, device=self.device)
-        x = self.embed.to(_cdtype(self.cfg))[tokens]
+        # the lookup as F.embedding: the same rows, and a backward that
+        # sums each row's gradient in a fixed order (indexing's
+        # accumulating backward does not)
+        x = F.embedding(tokens, self.embed.to(_cdtype(self.cfg)))
         b, s = x.shape[:2]
         positions = torch.arange(s, dtype=torch.int32,
                                  device=self.device)[None].expand(b, s)
         return x, positions
 
-    @torch.no_grad()
     def forward(self, tokens: torch.Tensor,
                 ffn_inputs: list | None = None) -> torch.Tensor:
         """Logits (B, S, padded_vocab) in float32.  ``ffn_inputs``, when
-        given, collects each block's FFN input (B, S, D) in order."""
+        given, collects each block's FFN input (B, S, D) in order (and
+        turns remat off: a recomputed block would collect twice)."""
         x, positions = self.embed_inputs(tokens)
+        remat = _REMAT.get(self.cfg.remat) if (
+            torch.is_grad_enabled() and ffn_inputs is None) else None
         for blk in self.blocks:
-            x = blk(x, positions, self.window, ffn_inputs)
+            if remat is None:
+                x = blk(x, positions, self.window, ffn_inputs)
+            else:
+                x = remat(blk, x, positions, self.window)
         x = rms_norm(x, self.final_norm)
         return self.lm_logits(x)
 
@@ -190,6 +215,25 @@ class Transformer(nn.Module):
         if self.cfg.padded_vocab != self.cfg.vocab_size:
             logits[..., self.cfg.vocab_size:] = -1e30
         return logits
+
+
+# the reference's jax.checkpoint policies: "dots" saves the outputs of the
+# matrix products (checkpoint_dots) and recomputes everything else
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default]
+_REMAT = {
+    "full": partial(checkpoint, use_reentrant=False),
+    "dots": partial(checkpoint, use_reentrant=False, context_fn=partial(
+        create_selective_checkpoint_contexts, _DOTS)),
+}
+
+
+def train_loss(model: Transformer, batch: dict) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch["tokens"]`` (B, S): the
+    logits at positions 0..S-2 against the tokens at 1..S-1."""
+    tokens = torch.as_tensor(batch["tokens"], device=model.device)
+    logits = model(tokens)
+    return softmax_xent(logits[:, :-1], tokens[:, 1:])
 
 
 @torch.no_grad()

@@ -9,7 +9,9 @@ prompt once and fills every layer's cache; ``decode_step`` advances one
 token.  The reference scans over stacked layer parameters; here both walk
 the model's blocks in a Python loop, and a decode step writes each layer's
 slot of the cache in place (the returned cache holds the same tensors with
-``length + 1``).
+``length + 1``).  Both run under ``torch.inference_mode()``: the model's
+forward records autograd where grad is enabled (training), and serving
+enters inference mode itself.
 """
 from __future__ import annotations
 
@@ -63,7 +65,7 @@ def _attn_block_step(blk: Block, x, cfg, kv: KVCache, window: int):
     return x + blk.ffn(p, h)
 
 
-@torch.no_grad()
+@torch.inference_mode()
 def decode_step(model: Transformer, tokens: torch.Tensor,
                 cache: DecodeCache) -> tuple[torch.Tensor, DecodeCache]:
     """tokens (B, 1) -> (logits (B, 1, padded_vocab) float32, the cache
@@ -78,7 +80,7 @@ def decode_step(model: Transformer, tokens: torch.Tensor,
     return model.lm_logits(x), cache._replace(length=cache.length + 1)
 
 
-@torch.no_grad()
+@torch.inference_mode()
 def prefill(model: Transformer, tokens: torch.Tensor, context: int
             ) -> tuple[torch.Tensor, DecodeCache]:
     """Full forward over the prompt tokens (B, S): (logits (B, S,

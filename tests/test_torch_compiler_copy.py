@@ -3,7 +3,8 @@
 The copies are verbatim apart from their import lines (the compiler under
 ``repro_torch.core`` with the Verilog front end, the simulator, the flow's
 layer conversion, the model configuration and the architecture configs,
-the front door and its traffic generator), or verbatim function by function
+the front door and its traffic generator, the trainer's resilience
+monitors), or verbatim function by function
 where the port keeps only part of a module or ports the rest to PyTorch;
 the few lines where a copy must differ (a device in place of the TPU's
 interpret flag, the calibration record named by device) are listed here
@@ -32,7 +33,8 @@ COPIED = [f"core/{m}" for m in (
     "errors", "gate_ir", "levelize", "packing", "opt", "spec", "cost_model",
     "calibrate", "scheduler", "verify", "partition", "optimizer", "compiler",
     "artifact_store", "espresso", "simulator", "verilog", "synth")] + [
-    "flow/convert", "models/config"] + [f"configs/{m}" for m in (
+    "flow/convert", "models/config", "train/resilience"] + [
+    f"configs/{m}" for m in (
         "qwen3_8b", "internlm2_20b", "minicpm_2b", "qwen3_32b",
         "mixtral_8x7b", "grok1_314b", "mamba2_370m", "hubert_xlarge",
         "internvl2_76b", "recurrentgemma_2b")]

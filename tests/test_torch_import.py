@@ -14,7 +14,8 @@ PKG = ROOT / "src" / "repro_torch"
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
 # modules every walk must reach (the XNOR GEMM, the NullaNet flow, the
 # front door, its traffic, the tools, the serving examples, the Verilog
-# front end and the quickstart, and the LM serving path)
+# front end and the quickstart, the LM serving path, and the LM training
+# path: optimizer, trainer, checkpoints, launcher and examples)
 EXPECTED = ("repro_torch.kernels.native", "repro_torch.kernels.xnor_gemm.ops",
             "repro_torch.kernels.xnor_gemm.kernel",
             "repro_torch.kernels.xnor_gemm.ref", "repro_torch.data.synthetic",
@@ -34,7 +35,14 @@ EXPECTED = ("repro_torch.kernels.native", "repro_torch.kernels.xnor_gemm.ops",
             "repro_torch.models.logic_mlp", "repro_torch.configs.registry",
             "repro_torch.configs.qwen3_8b", "repro_torch.configs.minicpm_2b",
             "repro_torch.serve.engine", "repro_torch.launch.serve",
-            "repro_torch.examples.serve_lm")
+            "repro_torch.examples.serve_lm",
+            "repro_torch.optim", "repro_torch.optim.schedule",
+            "repro_torch.optim.clip", "repro_torch.optim.adamw",
+            "repro_torch.optim.compression", "repro_torch.train",
+            "repro_torch.train.resilience", "repro_torch.train.checkpoint",
+            "repro_torch.train.trainer", "repro_torch.launch.train",
+            "repro_torch.convert", "repro_torch.examples.train_lm",
+            "repro_torch.examples.logic_mlp_swap")
 
 
 def test_package_imports_without_jax_or_reference():

@@ -176,3 +176,180 @@ def test_logic_model_equals_binary_model_on_calibration_batches():
                 logic_mlp.binary_hidden(blk.params(), h).numpy())
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
                                    atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# training: the straight-through estimator
+# ---------------------------------------------------------------------------
+
+STE_MARGIN = 1e-4     # every threshold's input at least this far from 0
+
+
+def _margin_inputs(seed):
+    """FFN params and inputs whose thresholds all keep STE_MARGIN: the
+    block input itself (moved 1e-3 away from 0) and every hidden
+    pre-activation (asserted)."""
+    p, x = _ffn_params(seed), _x(seed + 20)
+    x = np.where(x >= 0, x + 1e-3, x - 1e-3).astype(np.float32)
+    pre = (2.0 * (x.reshape(-1, D) >= 0) - 1.0) @ p["w_in"] + p["b_in"]
+    assert np.abs(x).min() >= STE_MARGIN, np.abs(x).min()
+    assert np.abs(pre).min() >= STE_MARGIN, np.abs(pre).min()
+    return p, x
+
+
+@pytest.mark.parametrize("seed", [5, 6])
+def test_ste_value_and_gradient_match_reference(seed):
+    """binary_ffn's value and its gradient with respect to the input and
+    all three weights against jax.grad of the reference's, for a random
+    cotangent: value at 1e-5 (the reference's STE value is the hard one
+    only up to float rounding), gradients at 1e-5 of each leaf's largest
+    element."""
+    p, x = _margin_inputs(seed)
+    ct = np.random.default_rng(seed + 30).normal(size=x.shape).astype(
+        np.float32)
+    tp = {k: torch.from_numpy(v).requires_grad_(True) for k, v in p.items()}
+    tx = torch.from_numpy(x).requires_grad_(True)
+    y = logic_mlp.binary_ffn(tp, tx)
+    got = torch.autograd.grad((y * torch.from_numpy(ct)).sum(),
+                              [tx, *tp.values()])
+
+    def ref_fn(prm, xx):
+        return jnp.sum(ref_logic_mlp.binary_ffn(prm, xx) * ct)
+
+    ref_y = ref_logic_mlp.binary_ffn(_jnp(p), jnp.asarray(x))
+    g_p, g_x = jax.grad(ref_fn, argnums=(0, 1))(_jnp(p), jnp.asarray(x))
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(ref_y),
+                               rtol=1e-5, atol=1e-5)
+    want = [np.asarray(g_x)] + [np.asarray(g_p[k]) for k in tp]
+    for name, g, w in zip(["x", *tp], got, want):
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-5,
+                                   atol=1e-5 * np.abs(w).max(), err_msg=name)
+    # the forward is the exact hard threshold: binary_hidden's bits
+    xb = (x.reshape(-1, D) >= 0)
+    h = ((2.0 * xb - 1.0) @ p["w_in"] + p["b_in"] >= 0)
+    np.testing.assert_array_equal(
+        logic_mlp.binary_hidden(_torch(p), torch.from_numpy(x)).numpy(), h)
+
+
+def test_ste_forward_is_exact_and_backward_is_the_soft_derivative():
+    y = torch.tensor([-2.0, -1e-7, 0.0, 1e-7, 0.3], requires_grad=True)
+    out = logic_mlp.ste01(y)
+    assert out.tolist() == [0.0, 0.0, 1.0, 1.0, 1.0]
+    (g,) = torch.autograd.grad(out.sum(), y)
+    t = torch.tanh(y.detach())
+    assert torch.equal(g, 0.5 * (1.0 - t * t))
+
+
+def _numpy_swap_params(ref_cfg, seed):
+    """The swap model's reference tree with every weight drawn by numpy
+    from ``seed`` (normal 0.02; the FFN's w_in 0.5 N(0,1), b_in 0, w_out
+    0.1 N(0,1)); norms stay ones.  Unlike ``init_params``'s draws these
+    are the same in every process."""
+    params = ref_init_params(ref_cfg, jax.random.PRNGKey(0))
+    rng = np.random.default_rng(seed)
+    L = ref_cfg.n_layers
+
+    def draw(a):
+        a = np.asarray(a)
+        if (a == 1).all():
+            return jnp.asarray(a)
+        return jnp.asarray(0.02 * rng.normal(size=a.shape), jnp.float32)
+
+    params = jax.tree.map(draw, params)
+    for k in ("w_gate", "w_up", "w_down"):
+        params["blocks"].pop(k)
+    params["blocks"]["w_in"] = jnp.asarray(0.5 * rng.normal(size=(L, D, F)),
+                                           jnp.float32)
+    params["blocks"]["b_in"] = jnp.zeros((L, F), jnp.float32)
+    params["blocks"]["w_out"] = jnp.asarray(
+        0.1 * rng.normal(size=(L, F, D)), jnp.float32)
+    return params
+
+
+def test_one_ste_training_step_matches_reference():
+    """One step of the reference example's ``step_fn``
+    (``examples/logic_mlp_swap.py:55-67``: the STE model's loss, its
+    gradient, AdamW at lr 2e-3) against the port's ``train_ste`` for one
+    step: the loss at 1e-5, the parameters within 0.1 lr, the moments at
+    1e-3 (1e-6 / 1e-9 absolute).  Every threshold of the forward keeps a
+    margin of 1e-5, asserted, so no bit rounds to the other side."""
+    from repro_torch.examples import logic_mlp_swap as swap
+    from repro.models.layers import softmax_xent as ref_xent
+    from repro.optim import adamw_init as ref_adamw_init
+    from repro.optim import adamw_update as ref_adamw_update
+    from repro_torch.convert import adamw_state_from_reference
+
+    ref_cfg = ref_get_config("qwen3-8b", smoke=True).with_(**SWAP)
+    cfg = swap.swap_config()
+    params = _numpy_swap_params(ref_cfg, 11)
+    model = Transformer(cfg, device="cpu")
+    model.load_state_dict(transformer_params_from_reference(
+        jax.tree.map(np.asarray, params), cfg))
+    pipe = swap.pipeline(cfg)
+    tokens = jnp.asarray(pipe.batch(0)["tokens"])
+
+    ins = []
+    with torch.no_grad():
+        model(torch.from_numpy(np.array(tokens)), ffn_inputs=ins)
+    for blk, h in zip(model.blocks, ins):
+        pre = (2.0 * (h >= 0).float() - 1.0) @ blk.w_in + blk.b_in
+        assert float(h.abs().min()) >= 1e-5 and \
+            float(pre.abs().min()) >= 1e-5
+
+    def loss_fn(prm, toks):
+        logits = _ref_swap_forward(prm, ref_cfg, toks)
+        return ref_xent(logits[:, :-1].astype(jnp.float32), toks[:, 1:])
+
+    ref_loss, g = jax.jit(jax.value_and_grad(loss_fn))(params, tokens)
+    ref_params, ref_opt = ref_adamw_update(g, ref_adamw_init(params), params,
+                                           lr=swap.LR)
+    params_before = {k: v.clone() for k, v in model.state_dict().items()}
+    (loss,) = swap.train_ste(model, pipe, steps=1, log=lambda *_: None)
+    assert loss == pytest.approx(float(ref_loss), rel=1e-5)
+    want = transformer_params_from_reference(
+        jax.tree.map(np.asarray, ref_params), cfg)
+    for name, p in model.named_parameters():
+        assert not torch.equal(p, params_before[name]) or name.endswith(
+            "norm"), name
+        np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(),
+                                   rtol=0, atol=0.1 * swap.LR, err_msg=name)
+    want_opt = adamw_state_from_reference(jax.tree.map(np.asarray, ref_opt),
+                                          cfg)
+    assert want_opt.step == 1
+
+
+@pytest.fixture(scope="module")
+def trained_swap():
+    """The port's example flow on the CPU: 150 STE steps, then capture and
+    conversion from 2 calibration batches (``n_unit`` 16)."""
+    from repro_torch.examples import logic_mlp_swap as swap
+    cfg = swap.swap_config()
+    model = swap.init_swap_model(cfg, 0, "cpu")
+    pipe = swap.pipeline(cfg)
+    losses = swap.train_ste(model, pipe, log=lambda *_: None)
+    calib = [swap.tokens_of(pipe, swap.CALIB_FIRST + i, "cpu")
+             for i in range(CALIB_BATCHES)]
+    layers = swap.convert(model, swap.capture_bits(model, calib),
+                          log=lambda *_: None)
+    return swap, model, calib, losses, layers
+
+
+def test_trained_logic_ffn_is_exact_on_its_calibration_batches(trained_swap):
+    swap, model, calib, losses, layers = trained_swap
+    assert len(losses) == swap.STEPS and all(np.isfinite(losses))
+    assert [ly["samples"] for ly in layers] == [CALIB_BATCHES * 8 * 32] * 2
+    programs = [blk.program for blk in model.blocks]
+    assert all(p.n_gates > 0 for p in programs)
+    for tokens in calib:
+        ins = []
+        logic = swap.forward_with(model, tokens, programs, ffn_inputs=ins)
+        for blk, h in zip(model.blocks, ins):
+            np.testing.assert_array_equal(
+                logic_mlp.logic_hidden(blk.program, h).numpy(),
+                logic_mlp.binary_hidden(blk.params(), h).numpy())
+        ste = swap.forward_with(model, tokens, [None] * len(programs))
+        assert torch.equal(logic, ste)
+    held = swap.compare(model, programs, swap.tokens_of(
+        swap.pipeline(model.cfg), swap.HELD_OUT, "cpu"))
+    assert 0.0 <= held["argmax_agreement"] <= 1.0
+    assert np.isfinite(held["loss_logic"]) and np.isfinite(held["loss_ste"])
