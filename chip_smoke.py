@@ -65,10 +65,26 @@ on the card against the CPU, and a resumed run against an unbroken one.
 ``logic_swap_train``: the logic-FFN swap trained with STE, converted and
 served through K1, with its held-out agreement.
 
+Then the other model families at their published widths, random weights
+from ``--seed`` (``families``, one line each): mixtral-8x7b (MoE, 16 of
+32 layers served), mamba2-370m (SSM), recurrentgemma-2b (hybrid),
+internvl2-76b (the VLM backbone with 256 stub patch embeddings, 16 of 80
+layers) and hubert-xlarge (the audio encoder over stub frames).  Each:
+float32 prefill + decode against the forward on the card (mixtral at a
+capacity factor where nothing can drop, then at its config's 1.25 with
+the drops reported; mamba2 over a ragged chunk; recurrentgemma past its
+local-window ring), the float32 forward on the card against the CPU's,
+then serving in bf16 through ``launch/serve.py``'s loop (internvl2
+through ``prefill(vision=)`` / ``decode_step``; hubert's encoder
+forward), every request finished with in-vocabulary ids.  They launch no
+ported kernel.
+
 Output, one JSON object per line: ``env``, ``build``, ``parity``,
 ``main_path``, ``timing``, ``engine``, ``xnor``, ``flow``, ``calibrate``,
 ``frontdoor``, ``warm_start``, ``quickstart``, ``logic_ffn``, ``lm``,
-``train_full``, ``train_parity`` and ``logic_swap_train``; then the
+``train_full``, ``train_parity``, ``logic_swap_train`` and ``families``
+(one line per model and a last one with the phase's kernel launches);
+then the
 card's name and power limit as nvidia-smi prints them; then a ``kernels``
 line (per kernel: its launches on the main paths, its largest difference
 from the plain version, its device time per call, the plain version's
@@ -188,6 +204,36 @@ TRAIN_PARITY = dict(n_layers=2, global_batch=2, seq_len=128, grad_accum=2,
                     lr=1e-3)
 TRAIN_PARITY_RTOL = 1e-4             # loss and grad_norm, card vs CPU
 TRAIN_RESUME_RTOL = 1e-3             # |resumed - unbroken| / |update|
+# the other families at full width, random weights from --seed: per model
+# the layers of each run (its whole depth where it fits; a cut is listed
+# under "reduced"), and the float32 self-consistency run's batch, tokens
+# (the prompt is all but the last `decode`) and decode steps; mixtral's
+# runs at capacity factor n_experts / k (nothing can drop), then again at
+# its config's 1.25 (reported, not gated).  mamba2's prompt of 100 spans
+# two chunks of 64 (the second ragged); recurrentgemma's prefill of 2,040
+# then 16 steps wraps its local-window ring of 2,048.  hubert-xlarge is an
+# encoder: no self-consistency run and no decode; its serving is the
+# forward over FAMILY_FRAMES stub frames (batch x frames, 10 s at 50 Hz).
+FAMILIES = {
+    "mixtral-8x7b": dict(serve=16, self_check=4, vs_cpu=2, batch=2,
+                         tokens=16, decode=4),
+    "mamba2-370m": dict(serve=48, self_check=48, vs_cpu=48, batch=2,
+                        tokens=104, decode=4),
+    "recurrentgemma-2b": dict(serve=26, self_check=26, vs_cpu=26, batch=1,
+                              tokens=2056, decode=16),
+    "internvl2-76b": dict(serve=16, self_check=4, vs_cpu=2, batch=2,
+                          tokens=16, decode=4),
+    "hubert-xlarge": dict(serve=48, self_check=None, vs_cpu=48),
+}
+FAMILY_PARITY_TOL = 2e-3             # prefill + decode against forward
+# card against CPU in float32 (TF32 off): the same 1e-4 that holds the
+# packages together on the CPU (float32 sums of up to 28,672 terms in
+# another order; train_parity's full-width float32 step agrees to ~1e-7)
+FAMILY_VS_CPU_TOL = 1e-4
+FAMILY_VS_CPU_TOKENS = 32            # batch 1; vlm: after its vision tokens
+FAMILY_FRAMES = (4, 500)
+FAMILY_SERVE = dict(LM_SERVE)
+FAMILY_TRACED_STEPS = 8
 
 
 def emit(obj: dict) -> None:
@@ -678,6 +724,7 @@ def run(args, torch) -> None:
     train_full_phase(args, torch, dev, smi)
     train_parity_phase(args, torch, dev, smi)
     lswap = logic_swap_train_phase(args, torch, dev, smi, cuda_ms)
+    families_phase(args, torch, dev, smi)
     max_err["logic"] = max(max_err["logic"], quick["max_abs_err"],
                            lffn["max_abs_err"], lswap["max_abs_err"])
     paths = {"fc1": launches, "xnor": xnor["launches"],
@@ -1782,6 +1829,458 @@ def lm_phase(args, torch, dev, smi) -> dict:
     del model, state
     torch.cuda.empty_cache()
     return out
+
+
+def families_phase(args, torch, dev, smi) -> None:
+    """The MoE, SSM, hybrid, VLM and audio families at full width, one
+    line each (:func:`family_case`).  They launch no ported kernel: their
+    scans and dispatch are plain PyTorch, as they are XLA in the
+    reference; the K1/K2/K3 counts over the phase are reported."""
+    from repro_torch.kernels.logic_dsp import kernel as K
+
+    K.reset_launch_counts()                     # families path starts here
+    for arch, plan in FAMILIES.items():
+        family_case(args, torch, dev, smi, arch, plan)
+    launches = {k: K.launch_count(k) for k in ("logic", "mega", "xnor")}
+    emit({"phase": "families", "models": list(FAMILIES),
+          "launches": launches, "nvidia_smi": smi})
+
+
+def family_inputs(torch, cfg, batch, tokens, rng, dev):
+    """Seeded inputs of the family on ``dev``: ``(tokens, kw)`` where kw
+    holds ``frames`` (audio: tokens is None) or ``vision`` (vlm)."""
+    if cfg.family == "audio":
+        frames = rng.normal(size=(batch, tokens, cfg.frontend_dim))
+        return None, {"frames": torch.from_numpy(frames).float().to(dev)}
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (batch, tokens))).to(dev)
+    if cfg.family != "vlm":
+        return toks, {}
+    vis = rng.normal(size=(batch, cfg.vision_tokens, cfg.d_model))
+    return toks, {"vision": torch.from_numpy(vis).float().to(dev)}
+
+
+def set_capacity_factor(model, cf: float) -> None:
+    """Route ``model``'s MoE layers at capacity factor ``cf``, same
+    weights."""
+    cfg = model.cfg.with_(capacity_factor=cf)
+    model.cfg = cfg
+    for blk in model.blocks:
+        blk.cfg = cfg
+
+
+def moe_routing(torch, model, toks) -> list:
+    """Each MoE layer's routing over a forward of ``toks``: (top-k
+    experts, buffer slots, capacity) per layer."""
+    from repro_torch.models import moe
+    ins = []
+    with torch.inference_mode():
+        model(toks, ins)
+    out = []
+    for blk, h in zip(model.blocks, ins):
+        _, idx, _, a_slot, cap = moe.route(blk.params(), h, model.cfg)
+        out.append((idx, a_slot, cap))
+    return out
+
+
+def prefill_decode_pairs(torch, model, toks, kw, n_decode):
+    """The forward over ``toks`` and prefill of all but the last
+    ``n_decode`` tokens plus one decode step for each: (logits, forward)
+    pairs and the forward's logits."""
+    from repro_torch.serve import decode_step, prefill
+    off = model.cfg.vision_tokens if "vision" in kw else 0
+    s = toks.shape[1]
+    p = s - n_decode
+    with torch.inference_mode():
+        full = model(toks, **kw)
+        lp, cache = prefill(model, toks[:, :p], context=s + off, **kw)
+        pairs = [(lp, full[:, :off + p])]
+        for t in range(p, s):
+            lg, cache = decode_step(model, toks[:, t:t + 1], cache)
+            pairs.append((lg[:, 0], full[:, off + t]))
+    return pairs, full
+
+
+def pairs_summary(torch, pairs, tol) -> dict:
+    return {"rtol": tol, "atol": tol,
+            "max_abs_diff": max(float((a - b).abs().max())
+                                for a, b in pairs),
+            "held": [bool(torch.allclose(a, b, rtol=tol, atol=tol))
+                     for a, b in pairs],
+            "finite": all(bool(torch.isfinite(a).all()) for a, _ in pairs)}
+
+
+def family_case(args, torch, dev, smi, arch, plan) -> dict:
+    """One family at full width, random weights from ``--seed``: (a)
+    float32 (TF32 off) prefill + decode against the forward on the card
+    (gated; mixtral also at 1.25, its drops reported), (b) the float32
+    forward on the card against the CPU's (gated), (c) serving in the
+    config's dtype: the launcher's loop (vlm: prefill with stub patch
+    embeddings, then decode; audio: the encoder forward over stub frames),
+    every request finished with in-vocabulary ids (gated), with prefill
+    and decode-step times, tokens per second, peak memory, the device's
+    idle share over a traced decode loop and the step's byte floor."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import Transformer, init_params
+
+    cfg = get_config(arch)
+    f32 = dict(param_dtype="float32", compute_dtype="float32")
+    out = {"phase": "families", "model": cfg.name, "family": cfg.family,
+           "nvidia_smi": smi,
+           "config": {k: getattr(cfg, k) for k in (
+               "n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
+               "d_ff", "vocab_size", "n_experts", "experts_per_token",
+               "capacity_factor", "sliding_window", "ssm_state",
+               "ssm_chunk", "block_pattern", "local_window",
+               "vision_tokens", "frontend_dim", "param_dtype")},
+           "params": cfg.param_count(), "reduced": {}}
+
+    def layers(run):
+        n = min(plan[run], cfg.n_layers)
+        if n < cfg.n_layers:
+            out["reduced"][run] = {
+                "n_layers": n, "of": cfg.n_layers,
+                "bytes": cfg.with_(n_layers=n).param_count() *
+                (4 if run != "serve" else 2),
+                "whole_bytes": cfg.param_count() *
+                (4 if run != "serve" else 2)}
+        return n
+
+    rng = np.random.default_rng(args.seed + 31)
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        # (a) float32 self-consistency on the card
+        if plan["self_check"] is not None:
+            kw_cfg = dict(f32)
+            if cfg.family == "moe":
+                kw_cfg["capacity_factor"] = \
+                    cfg.n_experts / cfg.experts_per_token
+            c32 = cfg.with_(n_layers=layers("self_check"), **kw_cfg)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            model = init_params(c32, torch.Generator(dev).manual_seed(
+                args.seed), dev)
+            toks, kw = family_inputs(torch, c32, plan["batch"],
+                                     plan["tokens"], rng, dev)
+            pairs, full = prefill_decode_pairs(torch, model, toks, kw,
+                                               plan["decode"])
+            torch.cuda.synchronize()
+            sc = {"dtype": "float32", "allow_tf32": False,
+                  "n_layers": c32.n_layers, "batch": plan["batch"],
+                  "tokens": plan["tokens"], "decode_steps": plan["decode"],
+                  "prefill": plan["tokens"] - plan["decode"],
+                  **pairs_summary(torch, pairs, FAMILY_PARITY_TOL),
+                  "logits_max_abs": float(
+                      full[..., :cfg.vocab_size].abs().max()),
+                  "max_memory_allocated":
+                      torch.cuda.max_memory_allocated(dev)}
+            if cfg.family == "moe":
+                # cap >= S at n_experts / k: nothing can drop
+                from repro_torch.models.moe import capacity
+                sc["capacity_factor"] = c32.capacity_factor
+                sc["no_drop_possible"] = all(
+                    capacity(c32, n) >= n for n in range(1, toks.shape[1] + 1))
+                p = plan["tokens"] - plan["decode"]
+                set_capacity_factor(model, cfg.capacity_factor)
+                routes = {"forward": moe_routing(torch, model, toks),
+                          "prefill": moe_routing(torch, model,
+                                                 toks[:, :p])}
+                pairs125, _ = prefill_decode_pairs(torch, model, toks, kw,
+                                                   plan["decode"])
+                e = cfg.n_experts
+                sc["at_config_capacity_factor"] = {
+                    "capacity_factor": cfg.capacity_factor,
+                    "capacity": {k: r[0][2] for k, r in routes.items()},
+                    "dropped_by_layer": {
+                        k: [int((slot == e * cap).sum())
+                            for _, slot, cap in r]
+                        for k, r in routes.items()},
+                    "assignments_per_layer": {
+                        k: int(r[0][0].numel()) for k, r in routes.items()},
+                    **{k: v for k, v in pairs_summary(
+                        torch, pairs125, FAMILY_PARITY_TOL).items()
+                       if k in ("max_abs_diff", "held", "finite")}}
+            sc["seconds"] = time.perf_counter() - t0
+            out["self_consistency"] = sc
+            del model, pairs, full, toks, kw
+            torch.cuda.empty_cache()
+
+        # (b) float32 card against CPU
+        t0 = time.perf_counter()
+        cc = cfg.with_(n_layers=layers("vs_cpu"), **f32)
+        card = init_params(cc, torch.Generator(dev).manual_seed(
+            args.seed + 1), dev)
+        cpu = Transformer(cc, device="cpu")
+        cpu.load_state_dict(card.state_dict())
+        n_tok = FAMILY_FRAMES[1] if cfg.family == "audio" else \
+            FAMILY_VS_CPU_TOKENS
+        toks, kw = family_inputs(torch, cc, 1, n_tok, rng, dev)
+        with torch.inference_mode():
+            got = card(toks, **kw).cpu()
+            want = cpu(None if toks is None else toks.cpu(),
+                       **{k: v.cpu() for k, v in kw.items()})
+        tol = FAMILY_VS_CPU_TOL
+        vs = {"dtype": "float32", "allow_tf32": False,
+              "n_layers": cc.n_layers, "batch": 1, "tokens": n_tok,
+              "rtol": tol, "atol": tol,
+              "max_abs_diff": float((got - want).abs().max()),
+              "logits_max_abs": float(
+                  want[..., :cfg.vocab_size].abs().max()),
+              "held": bool(torch.allclose(got, want, rtol=tol, atol=tol)),
+              "finite": bool(torch.isfinite(got).all() and
+                             torch.isfinite(want).all())}
+        if cfg.family == "moe":
+            a = moe_routing(torch, card, toks)
+            b = moe_routing(torch, cpu, toks.cpu())
+            vs["routing_differences"] = sum(
+                int((x[0].cpu() != y[0]).sum()) for x, y in zip(a, b))
+            vs["slot_differences"] = sum(
+                int((x[1].cpu() != y[1]).sum()) for x, y in zip(a, b))
+        vs["seconds"] = time.perf_counter() - t0
+        out["vs_cpu"] = vs
+        del card, cpu, got, want, toks, kw
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+
+    # (c) serving in the config's dtype
+    out["serve"] = family_serve(args, torch, dev, cfg.with_(
+        n_layers=layers("serve")), rng)
+    emit(out)
+    name = cfg.name
+    if "self_consistency" in out:
+        sc = out["self_consistency"]
+        check(sc["finite"] and all(sc["held"]),
+              f"{name}: prefill + decode == forward within "
+              f"{FAMILY_PARITY_TOL} in float32 ({sc['max_abs_diff']})")
+    check(out["vs_cpu"]["finite"] and out["vs_cpu"]["held"],
+          f"{name}: card == CPU within {FAMILY_VS_CPU_TOL} in float32 "
+          f"({out['vs_cpu']['max_abs_diff']})")
+    sv = out["serve"]
+    check(out.get("self_consistency", {}).get("no_drop_possible", True),
+          f"{name}: the float32 gate's capacity drops nothing")
+    check(sv["finite"], f"{name}: served logits are finite")
+    check(sv["finished"] == sv["requests"] and sv["in_vocabulary"],
+          f"{name}: every request finished with in-vocabulary ids")
+    return out
+
+
+def family_serve(args, torch, dev, cfg, rng) -> dict:
+    """Serving in the config's dtype at ``cfg``'s depth (see
+    :func:`family_case`)."""
+    import numpy as np
+
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import decode_step, prefill
+
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(dev).manual_seed(args.seed),
+                        dev)
+    torch.cuda.synchronize()
+    out = {"n_layers": cfg.n_layers, "dtype": cfg.param_dtype,
+           "init_s": time.perf_counter() - t0,
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in model.parameters())}
+    if cfg.family == "audio":
+        out.update(encoder_serve(torch, model, rng, dev))
+        del model
+        torch.cuda.empty_cache()
+        return out
+    sv = FAMILY_SERVE
+    n_vis = cfg.vision_tokens if cfg.family == "vlm" else 0
+    context = sv["context"] + n_vis
+    prompts = launch_serve.make_prompts(cfg, sv["requests"],
+                                        sv["prompt_len"], args.seed)
+    vision = None
+    if n_vis:
+        vision = [torch.from_numpy(rng.normal(
+            size=(1, n_vis, cfg.d_model))).to(dev, torch.bfloat16)
+            for _ in prompts]
+
+    def serve_all(ps, max_new):
+        if vision is None:
+            return launch_serve.serve(model, ps, batch_size=sv["batch_size"],
+                                      max_new=max_new, context=context)
+        return serve_with_vision(torch, model, ps, vision, max_new, context)
+
+    serve_all(prompts[:1], 2)                                  # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
+    r = serve_all(prompts, sv["max_new"])
+    peak = torch.cuda.max_memory_allocated(dev)
+    state = {"finite": True}
+    vis0 = {} if vision is None else {"vision": vision[0]}
+
+    def decode_loop():
+        logits, state["cache"] = prefill(
+            model, torch.as_tensor(prompts[0], device=dev)[None],
+            context=context, **vis0)
+        ok = [torch.isfinite(logits[..., :cfg.vocab_size]).all()]
+        tok = int(prompts[0][-1])
+        for _ in range(FAMILY_TRACED_STEPS):
+            logits, state["cache"] = decode_step(
+                model, torch.tensor([[tok]], device=dev), state["cache"])
+            ok.append(torch.isfinite(logits[..., :cfg.vocab_size]).all())
+            tok = int(torch.argmax(logits[0, -1]))
+        state["finite"] = bool(torch.stack(ok).all())
+
+    wall_us, busy_us, by_name, launches = traced(torch, decode_loop)
+    host = decode_step_host_profile(torch, model, state["cache"], dev)
+    step_bytes = decode_step_bytes(model, state["cache"])
+    dec = np.asarray(r["decode_s"]) * 1e3
+    pre = np.asarray(r["prefill_s"]) * 1e3
+    finished = r["finished"]
+    out.update({
+        **sv, "context": context, "vision_tokens": n_vis,
+        "requests": sv["requests"], "finished": len(finished),
+        "in_vocabulary": sorted(q.uid for q in finished) ==
+        list(range(sv["requests"])) and all(
+            len(q.generated) == sv["max_new"] and
+            all(0 <= t < cfg.vocab_size for t in q.generated)
+            for q in finished),
+        "finite": state["finite"], "decode_steps": r["n_steps"],
+        "seconds": r["seconds"], "tok_per_s": r["n_steps"] / r["seconds"],
+        "prefill_ms_p50": float(np.median(pre)),
+        "prefill_ms_max": float(pre.max()),
+        "decode_step_ms_p50": float(np.percentile(dec, 50)),
+        "decode_step_ms_p90": float(np.percentile(dec, 90)),
+        "max_memory_allocated": peak,
+        "decode_step_bytes": step_bytes,
+        "decode_step_floor_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+        "traced_decode_steps": FAMILY_TRACED_STEPS,
+        "traced_wall_ms": wall_us / 1e3,
+        "traced_kernel_launches": launches,
+        "device_busy_ms": None if busy_us is None else busy_us / 1e3,
+        "device_idle_share": (None if busy_us is None
+                              else 1 - busy_us / wall_us),
+        "device_ms_by_name": dict(by_name[:5]),
+        "one_step_host_profile": host,
+        "first_tokens": {q.uid: q.generated for q in finished[:2]}})
+    out["decode_step_vs_floor"] = \
+        out["decode_step_ms_p50"] / out["decode_step_floor_ms"]
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_with_vision(torch, model, prompts, vision, max_new: int,
+                      context: int) -> dict:
+    """The launcher's loop for a vlm, one request at a time: prefill of
+    the request's stub patch embeddings and prompt, then ``max_new``
+    greedy decode steps, the first fed the prompt's last token again (as
+    ``launch.serve`` does).  The same result keys as ``launch.serve``'s
+    ``serve``."""
+    from types import SimpleNamespace
+
+    from repro_torch.serve import decode_step, prefill
+
+    dev = model.device
+    prefill_s, decode_s, finished = [], [], []
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for uid, (prompt, vis) in enumerate(zip(prompts, vision)):
+            t1 = time.perf_counter()
+            _, cache = prefill(model, torch.as_tensor(prompt,
+                                                      device=dev)[None],
+                               context=context, vision=vis)
+            torch.cuda.synchronize(dev)
+            prefill_s.append(time.perf_counter() - t1)
+            tok, generated = int(prompt[-1]), []
+            for _ in range(max_new):
+                t1 = time.perf_counter()
+                logits, cache = decode_step(
+                    model, torch.tensor([[tok]], device=dev), cache)
+                tok = int(torch.argmax(logits[0, -1]))
+                decode_s.append(time.perf_counter() - t1)
+                generated.append(tok)
+            finished.append(SimpleNamespace(uid=uid, generated=generated))
+    return {"finished": finished, "n_steps": len(decode_s),
+            "seconds": time.perf_counter() - t0, "prefill_s": prefill_s,
+            "decode_s": decode_s}
+
+
+def encoder_serve(torch, model, rng, dev) -> dict:
+    """The audio encoder's serving: its forward over FAMILY_FRAMES stub
+    frames, timed over 5 calls after a warm-up, one traced, with its
+    floors (every weight and the frames read once, the logits written
+    once, at the HBM rate; 2 x parameters x frames at the bf16 peak)."""
+    import numpy as np
+
+    cfg = model.cfg
+    b, s = FAMILY_FRAMES
+    frames = torch.from_numpy(rng.normal(size=(b, s, cfg.frontend_dim))
+                              ).to(dev, torch.bfloat16)
+    with torch.inference_mode():
+        model(frames=frames)                                   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            logits = model(frames=frames)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated(dev)
+        ids = torch.argmax(logits, dim=-1)
+        wall_us, busy_us, by_name, launches = traced(
+            torch, lambda: model(frames=frames))
+    ms = np.asarray(times) * 1e3
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    nbytes = param_bytes + frames.numel() * frames.element_size() + \
+        logits.numel() * logits.element_size()
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * cfg.param_count() * b * s / BF16_FLOPS_PER_S * 1e3
+    return {"batch": b, "frames": s, "requests": b, "finished": b,
+            "in_vocabulary": bool((ids < cfg.vocab_size).all()),
+            "finite": bool(torch.isfinite(
+                logits[..., :cfg.vocab_size]).all()),
+            "forward_ms_p50": float(np.median(ms)),
+            "forward_ms_max": float(ms.max()),
+            "frames_per_s": b * s / float(np.median(ms)) * 1e3,
+            "max_memory_allocated": peak,
+            "forward_floor_ms": max(bytes_ms, ops_ms),
+            "forward_bound_by": "bytes" if bytes_ms >= ops_ms
+            else "operations",
+            "traced_wall_ms": wall_us / 1e3,
+            "traced_kernel_launches": launches,
+            "device_busy_ms": None if busy_us is None else busy_us / 1e3,
+            "device_idle_share": (None if busy_us is None
+                                  else 1 - busy_us / wall_us),
+            "device_ms_by_name": dict(by_name[:5])}
+
+
+def decode_step_bytes(model, cache) -> int:
+    """What one decode step at batch 1 must read once: every block weight
+    but the experts the token does not route to (a token routes to k
+    distinct experts a layer), the final norm, the head, one embedding
+    row, and the cache's live state (the written KV entries, the SSM
+    state and conv carries, the RG-LRU state and carries)."""
+    cfg = model.cfg
+    total = 0
+    for blk in model.blocks:
+        for name, p in blk.named_parameters(recurse=False):
+            nb = p.numel() * p.element_size()
+            if blk.kind == "moe" and name in ("w_gate", "w_up", "w_down"):
+                nb = nb * cfg.experts_per_token // cfg.n_experts
+            total += nb
+    head = model.embed if cfg.tie_embeddings else model.lm_head
+    total += sum(p.numel() * p.element_size()
+                 for p in (model.final_norm, head))
+    total += cfg.d_model * model.embed.element_size()
+    for name in ("kv_k", "kv_v", "ssm_state", "conv_carry", "rec_h",
+                 "rec_conv"):
+        t = getattr(cache, name)
+        if t is None:
+            continue
+        nb = t.numel() * t.element_size()
+        if name.startswith("kv"):
+            nb = nb * min(cache.length + 1, t.shape[2]) // t.shape[2]
+        total += nb
+    return total
 
 
 def saved_signal_handlers():

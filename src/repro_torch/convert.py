@@ -15,9 +15,10 @@ cross as plain data — numpy arrays, ints, strings and dicts, never
   float32 parameter dict of the reference's ``init_binary_mlp`` /
   ``train_binary_mlp``, which ``core.nullanet.layer_to_graph`` consumes
   layer by layer;
-* :func:`transformer_params_from_reference` turns a dense transformer's
-  parameter tree (``models/transformer.init_params``'s, as numpy, the
-  ``blocks`` stacked on a leading layer axis; with ``cfg.logic_mlp`` the
+* :func:`transformer_params_from_reference` turns a transformer's
+  parameter tree of any family (``models/transformer.init_params``'s, as
+  numpy: the layers stacked in ``blocks``, the hybrid's ``groups`` and
+  ``tail``, or unrolled ``layers``; with ``cfg.logic_mlp`` the dense
   blocks carry the logic FFN's ``w_in``, ``b_in`` and ``w_out``) into the
   state dict of the port's ``Transformer``;
 * :func:`adamw_state_from_reference` turns the reference's ``AdamWState``
@@ -34,7 +35,9 @@ from repro_torch.core.gate_ir import LogicGraph
 from repro_torch.core.scheduler import LogicProgram
 from repro_torch.core.spec import CompileSpec
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import block_param_spec, param_spec
+from repro_torch.models.transformer import (block_param_spec,
+                                            hybrid_grouping, layer_kinds,
+                                            param_spec)
 from repro_torch.optim.adamw import AdamWState, resolve_moment_dtype
 
 
@@ -108,28 +111,84 @@ def params_from_reference(params: dict) -> dict:
     return out
 
 
+def reference_layout(cfg: ModelConfig) -> str:
+    """How the reference's tree stores the layers
+    (``models/transformer.param_spec``): ``"blocks"`` (a homogeneous
+    stack, every leaf with a leading layer axis), ``"groups"`` (the
+    hybrid's pattern stacks plus an unstacked ``tail``) or ``"layers"``
+    (one dict a layer)."""
+    kinds = layer_kinds(cfg)
+    if cfg.scan_layers and len(set(kinds)) == 1:
+        return "blocks"
+    if cfg.scan_layers and cfg.family == "hybrid" and cfg.block_pattern:
+        return "groups"
+    return "layers"
+
+
 def transformer_params_from_reference(params: dict,
                                       cfg: ModelConfig) -> dict:
     """The port's ``Transformer`` state dict from the reference's
-    parameter tree: ``{"embed", "final_norm", "lm_head" (unless tied),
-    "blocks": {name: (n_layers, ...)}}`` of arrays.  ``blocks`` splits into
-    ``blocks.{i}.{name}``; every leaf must have the shape the port's
-    parameter spec gives it (the logic FFN's with ``cfg.logic_mlp``)."""
+    parameter tree, as arrays: the top-level leaves (``embed``,
+    ``final_norm``, ``lm_head`` unless tied; ``frontend_proj`` and
+    ``head`` for audio) and the layers in the layout
+    :func:`reference_layout` names.  Layer i becomes ``blocks.{i}.{name}``:
+    from ``blocks[name][i]``; from ``groups[j][name][g]`` for i = g *
+    len(block_pattern) + j, the ``tail`` after the groups; or from
+    ``layers[i]``.  Every leaf must have the shape the port's parameter
+    spec gives its layer's kind (MoE experts stay stacked (E, ...); the
+    logic FFN's with ``cfg.logic_mlp``)."""
     top = {k: shape for k, (_, shape) in param_spec(cfg).items()}
-    blk = {k: shape for k, (_, shape) in block_param_spec(cfg).items()}
-    if set(params) != set(top) | {"blocks"} or set(params["blocks"]) != \
-            set(blk):
-        raise ValueError(
-            f"expected {sorted(top)} and blocks {sorted(blk)}, got "
-            f"{sorted(params)} and blocks {sorted(params.get('blocks', {}))}")
-    out = {}
-    for k, shape in top.items():
-        out[k] = _leaf(params[k], shape, k)
-    for k, shape in blk.items():
-        stacked = _leaf(params["blocks"][k], (cfg.n_layers, *shape),
-                        f"blocks/{k}")
-        for i in range(cfg.n_layers):
-            out[f"blocks.{i}.{k}"] = stacked[i]
+    layout = reference_layout(cfg)
+    specs = [{k: shape for k, (_, shape) in
+              block_param_spec(cfg, kind).items()}
+             for kind in layer_kinds(cfg)]
+    want = set(top) | ({"groups", "tail"} if layout == "groups"
+                       else {layout})
+    if set(params) != want:
+        raise ValueError(f"expected {sorted(want)}, got {sorted(params)}")
+    out = {k: _leaf(params[k], shape, k) for k, shape in top.items()}
+
+    def check_names(tree, layers, where):
+        names = set(specs[layers[0]])
+        if not isinstance(tree, dict) or set(tree) != names:
+            got = sorted(tree) if isinstance(tree, dict) else type(tree)
+            raise ValueError(f"{where}: expected {sorted(names)}, got {got}")
+
+    def unstack(tree, layers, where):
+        """A stacked tree's leaves split onto ``layers``, in order."""
+        check_names(tree, layers, where)
+        for k, shape in specs[layers[0]].items():
+            stacked = _leaf(tree[k], (len(layers), *shape), f"{where}/{k}")
+            for i, piece in zip(layers, stacked):
+                out[f"blocks.{i}.{k}"] = piece
+
+    def one(tree, i, where):
+        check_names(tree, [i], where)
+        for k, shape in specs[i].items():
+            out[f"blocks.{i}.{k}"] = _leaf(tree[k], shape, f"{where}/{k}")
+
+    n = cfg.n_layers
+    if layout == "blocks":
+        unstack(params["blocks"], list(range(n)), "blocks")
+    elif layout == "layers":
+        if len(params["layers"]) != n:
+            raise ValueError(f"layers: {len(params['layers'])} entries, "
+                             f"expected {n}")
+        for i, lp in enumerate(params["layers"]):
+            one(lp, i, f"layers/{i}")
+    else:
+        plen = len(cfg.block_pattern)
+        n_groups, n_tail = hybrid_grouping(cfg)
+        if len(params["groups"]) != plen or len(params["tail"]) != n_tail:
+            raise ValueError(
+                f"groups / tail: {len(params['groups'])} and "
+                f"{len(params['tail'])} entries, expected {plen} and "
+                f"{n_tail}")
+        for j, gp in enumerate(params["groups"]):
+            unstack(gp, list(range(j, n_groups * plen, plen)),
+                    f"groups/{j}")
+        for j, lp in enumerate(params["tail"]):
+            one(lp, n_groups * plen + j, f"tail/{j}")
     return out
 
 

@@ -4,12 +4,18 @@
         --smoke --requests 8 --prompt-len 16 --max-new 8 [--device cpu]
 
 The port's counterpart of ``src/repro/launch/serve.py`` on ``--device``
-(CUDA unless ``cpu``), for the dense family.  The loop is the
-reference's: each admitted request is prefilled into its slot's own
-cache, then every active slot decodes one token (slot caches differ in
-length, so each decodes alone, batch 1), and a finished slot's cache is
-dropped for the next admission.  As in the reference, a slot's first
-decode feeds the prompt's last token again.
+(CUDA unless ``cpu``), for the decoder families: dense, moe, ssm and
+hybrid.  It refuses an encoder (audio), as the reference does, and the
+vlm family: its prefill needs stub patch embeddings (``vision=``), which
+the reference's launcher never passes (it dies with ``KeyError:
+'vision'``), and neither package has a vision front end to make them.
+Drive a vlm through ``serve.prefill(..., vision=...)`` and
+``serve.decode_step`` instead.  The loop is the reference's: each
+admitted request is prefilled into its slot's own cache, then every
+active slot decodes one token (slot caches differ in length, so each
+decodes alone, batch 1), and a finished slot's cache is dropped for the
+next admission.  As in the reference, a slot's first decode feeds the
+prompt's last token again.
 """
 from __future__ import annotations
 
@@ -76,6 +82,20 @@ def serve(model: Transformer, prompts, *, batch_size: int, max_new: int,
             "decode_s": decode_s}
 
 
+def check_servable(cfg) -> None:
+    """Refuse what the launcher cannot serve: an encoder, and a vlm (no
+    vision front end makes its prefill's patch embeddings)."""
+    if cfg.is_encoder:
+        raise SystemExit(f"{cfg.name} is encoder-only: no decode serving")
+    if cfg.family == "vlm":
+        raise SystemExit(
+            f"{cfg.name} (vlm) needs stub patch embeddings for each "
+            "prompt, and the launcher has no vision front end to make "
+            "them (the reference's launcher fails on the missing "
+            "'vision' input); call serve.prefill(..., vision=...) and "
+            "serve.decode_step directly")
+
+
 def make_prompts(cfg, n: int, prompt_len: int, seed: int) -> list:
     rng = np.random.default_rng(seed)
     return [rng.integers(0, cfg.vocab_size, prompt_len, dtype=np.int32)
@@ -97,8 +117,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=args.smoke)
-    if cfg.is_encoder:
-        raise SystemExit(f"{cfg.name} is encoder-only: no decode serving")
+    check_servable(cfg)
     dev = resolve_device(args.device)
     model = init_params(cfg, torch.Generator(dev).manual_seed(args.seed),
                         dev)

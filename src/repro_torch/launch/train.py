@@ -7,7 +7,8 @@ The port's counterpart of ``src/repro/launch/train.py`` on one device
 (``--device``: CUDA unless ``cpu``), with the reference's flags and the
 architecture's own ``LR_SCHEDULE`` (minicpm's WSD; cosine otherwise).
 ``--model-parallel`` above 1 is refused: the sharded trainer is ROADMAP
-queue 1 item 3.
+queue 1 item 3.  A family other than dense raises ``NotImplementedError``
+(``Trainer``'s ``check_trainable``; ROADMAP queue 1 item 7).
 """
 from __future__ import annotations
 

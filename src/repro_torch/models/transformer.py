@@ -1,18 +1,24 @@
-"""The dense transformer: parameters, forward, logits and the training
-loss.
+"""Model assembly for every architecture family: parameters, forward,
+logits and the training loss.
 
-Port of ``src/repro/models/transformer.py`` for ``family="dense"``
-(llama/qwen-style GQA + SwiGLU, qk-norm, tied embeddings for minicpm) as a
-:class:`Transformer` ``nn.Module`` with an ``nn.ModuleList`` of
-:class:`Block`s.  Each block's parameters carry the reference's names
-(``attn_norm``, ``wq``, ``wk``, ``wv``, ``wo``, ``q_norm``, ``k_norm``,
-``mlp_norm``, ``w_gate``, ``w_up``, ``w_down``), so ``block.params()`` is
-the per-layer dict the layer functions take, and the state dict is the
-reference's tree with the stacked ``blocks`` split per layer
-(``convert.transformer_params_from_reference``).
+Port of ``src/repro/models/transformer.py`` as a :class:`Transformer`
+``nn.Module`` with an ``nn.ModuleList`` of per-layer :class:`Block`s.
+Families: dense (llama/qwen-style GQA + SwiGLU, qk-norm, tied embeddings
+for minicpm), moe (Mixtral / Grok top-2, ``models/moe.py``), ssm (Mamba-2
+/ SSD, ``models/mamba2.py``), audio (encoder-only, a stub frontend:
+``frames @ frontend_proj``), vlm (the LM backbone with stub patch
+embeddings ``vision`` before the tokens) and hybrid (RecurrentGemma:
+RG-LRU blocks, ``models/rglru.py``, and local attention on
+``local_window``).  A block's kind (:func:`layer_kinds`: ``dense``,
+``moe``, ``ssm`` or ``rec``) decides its parameters, which carry the
+reference's names (``attn_norm``, ``wq``, ..., ``w_router``, ``in_proj``,
+``gate_proj``, ...), so ``block.params()`` is the per-layer dict the layer
+functions take, and the state dict is the reference's tree with its
+layer stacks (``blocks``, the hybrid's ``groups`` + ``tail``, or
+``layers``) split per layer (``convert.transformer_params_from_reference``).
 
-With ``cfg.logic_mlp`` a block's FFN is the binarized MLP of
-``models/logic_mlp.py`` (``w_in``, ``b_in``, ``w_out``): it runs
+With ``cfg.logic_mlp`` (dense family only) a block's FFN is the binarized
+MLP of ``models/logic_mlp.py`` (``w_in``, ``b_in``, ``w_out``): it runs
 ``binary_ffn`` until the block is given a compiled program
 (``block.program``), and ``logic_ffn_apply`` (K1 on the card) after.
 
@@ -23,15 +29,13 @@ trainer turns it on, and the serving paths run under
 ``_maybe_remat``) applies while grad is enabled: ``"full"`` checkpoints
 each block (``torch.utils.checkpoint``, non-reentrant), ``"dots"`` saves
 only the matrix products' outputs and recomputes the rest, ``"none"`` is
-the plain loop.  :func:`train_loss` is the reference's next-token loss of
-the dense family.
+the plain loop.  :func:`train_loss` is the reference's loss: next-token,
+over the text only for vlm, against ``labels`` for audio.
 
 Dropped, because one device has no use for them: ``constrain`` (sharding
 annotations) and ``seq_parallel`` (sequence-sharded activations); they
-come with the sharded trainer (ROADMAP queue 1 item 3).  The layer scan
-is a Python loop over the blocks.  Any other family raises
-``NotImplementedError``: the MoE, SSM, hybrid, audio and VLM families are
-ROADMAP queue 1 item 5.
+come with the sharded trainer (ROADMAP queue 1 item 3).  The reference's
+layer and group scans are a Python loop over the blocks.
 """
 from __future__ import annotations
 
@@ -45,10 +49,11 @@ from torch.utils.checkpoint import (checkpoint,
 
 from repro_torch.kernels.logic_dsp.ops import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2, moe, rglru
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (DTYPES, normal_init, ones_init,
-                                       rms_norm, softmax_xent, swiglu,
-                                       zeros_init)
+from repro_torch.models.layers import (DTYPES, gelu_mlp, normal_init,
+                                       ones_init, rms_norm, softmax_xent,
+                                       swiglu, zeros_init)
 from repro_torch.models.logic_mlp import binary_ffn, logic_ffn_apply
 
 
@@ -58,13 +63,6 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 def _cdtype(cfg: ModelConfig) -> torch.dtype:
     return DTYPES[cfg.compute_dtype]
-
-
-def check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet (ROADMAP "
-            "queue 1 item 5); the port serves the dense family")
 
 
 # ===========================================================================
@@ -92,24 +90,108 @@ def _mlp_params(cfg, d):
                 "w_in": ("normal", (d, cfg.d_ff)),
                 "b_in": ("zeros", (cfg.d_ff,)),
                 "w_out": ("normal", (cfg.d_ff, d))}
+    if cfg.family == "audio":
+        return {"mlp_norm": ("ones", (d,)),
+                "w_in": ("normal", (d, cfg.d_ff)),
+                "w_out": ("normal", (cfg.d_ff, d))}
     return {"mlp_norm": ("ones", (d,)),
             "w_gate": ("normal", (d, cfg.d_ff)),
             "w_up": ("normal", (d, cfg.d_ff)),
             "w_down": ("normal", (cfg.d_ff, d))}
 
 
-def block_param_spec(cfg: ModelConfig) -> dict:
-    """One dense block's ``{name: (init_kind, shape)}``."""
+def _moe_params(cfg, d):
+    e, f = cfg.n_experts, cfg.d_ff
+    return {"mlp_norm": ("ones", (d,)),
+            "w_router": ("normal", (d, e)),
+            "w_gate": ("normal", (e, d, f)),
+            "w_up": ("normal", (e, d, f)),
+            "w_down": ("normal", (e, f, d))}
+
+
+def _ssm_params(cfg, d):
+    d_in, nh, p, n = mamba2.ssm_dims(cfg)
+    conv_ch = d_in + 2 * n
+    return {
+        "norm": ("ones", (d,)),
+        "in_proj": ("normal", (d, 2 * d_in + 2 * n + nh)),
+        "conv_w": ("normal", (cfg.ssm_conv_width, conv_ch)),
+        "dt_bias": ("zeros", (nh,)),
+        "a_log": ("zeros", (nh,)),
+        "skip_d": ("ones", (nh,)),
+        "out_norm": ("ones", (d_in,)),
+        "out_proj": ("normal", (d_in, d)),
+    }
+
+
+def _rec_params(cfg, d):
+    d_rnn = cfg.n_heads * cfg.resolved_head_dim
+    return {
+        "attn_norm": ("ones", (d,)),          # pre-norm of the mixing block
+        "gate_proj": ("normal", (d, d_rnn)),
+        "rnn_proj": ("normal", (d, d_rnn)),
+        "conv_w": ("normal", (cfg.ssm_conv_width, d_rnn)),
+        "w_a": ("normal", (d_rnn, d_rnn)),
+        "b_a": ("zeros", (d_rnn,)),
+        "w_x": ("normal", (d_rnn, d_rnn)),
+        "b_x": ("zeros", (d_rnn,)),
+        "lam": ("ones", (d_rnn,)),            # init_params: 4.0
+        "out_proj": ("normal", (d_rnn, d)),
+    }
+
+
+def block_param_spec(cfg: ModelConfig, kind: str = "dense") -> dict:
+    """One block's ``{name: (init_kind, shape)}`` for its kind."""
     d = cfg.d_model
+    if kind == "ssm":
+        return _ssm_params(cfg, d)
+    if kind == "rec":
+        return {**_rec_params(cfg, d), **_mlp_params(cfg, d)}
+    if kind == "moe":
+        return {**_attn_params(cfg, d), **_moe_params(cfg, d)}
+    # dense / audio / vlm / hybrid-attn
     return {**_attn_params(cfg, d), **_mlp_params(cfg, d)}
+
+
+def layer_kinds(cfg: ModelConfig) -> list[str]:
+    if cfg.family == "ssm":
+        return ["ssm"] * cfg.n_layers
+    if cfg.family == "hybrid":
+        pat = cfg.block_pattern or ("rec", "rec", "attn")
+        # normalize: pattern "attn" entries are plain dense blocks
+        return [("dense" if pat[i % len(pat)] == "attn" else
+                 pat[i % len(pat)]) for i in range(cfg.n_layers)]
+    if cfg.family == "moe":
+        return ["moe"] * cfg.n_layers
+    return ["dense"] * cfg.n_layers
+
+
+def hybrid_grouping(cfg: ModelConfig) -> tuple[int, int]:
+    """(n_groups, n_tail) of the reference's scan over a heterogeneous
+    pattern stack."""
+    plen = len(cfg.block_pattern) or 1
+    n_groups = cfg.n_layers // plen
+    return n_groups, cfg.n_layers - n_groups * plen
+
+
+def layer_window(cfg: ModelConfig, kind: str) -> int:
+    """The attention window of a layer of this kind (0: full): the
+    hybrid's attention layers attend over ``local_window``."""
+    if cfg.family == "hybrid" and kind == "dense":
+        return cfg.local_window
+    return cfg.sliding_window
 
 
 def param_spec(cfg: ModelConfig) -> dict:
     """The model's top-level ``{name: (init_kind, shape)}`` (blocks
     aside)."""
     d = cfg.d_model
-    spec = {"final_norm": ("ones", (d,)),
-            "embed": ("normal", (cfg.padded_vocab, d))}
+    spec = {"final_norm": ("ones", (d,))}
+    if cfg.family == "audio":
+        spec["frontend_proj"] = ("normal", (cfg.frontend_dim, d))
+        spec["head"] = ("normal", (d, cfg.padded_vocab))
+        return spec
+    spec["embed"] = ("normal", (cfg.padded_vocab, d))
     if not cfg.tie_embeddings:
         spec["lm_head"] = ("normal", (d, cfg.padded_vocab))
     return spec
@@ -126,32 +208,97 @@ def _register(module: nn.Module, spec: dict, dtype, device) -> None:
             requires_grad=False))
 
 
-class Block(nn.Module):
-    """One dense block: pre-norm attention, then a pre-norm FFN (SwiGLU,
-    or the binarized / logic FFN with ``cfg.logic_mlp``)."""
+# ===========================================================================
+# Mixing layers on pre-normed input (shared with serve/engine.py's prefill)
+# ===========================================================================
 
-    def __init__(self, cfg: ModelConfig, device=None):
+def _ssm_mix(p, xz, cfg, conv_carry=None, init_state=None):
+    """Core mamba2 mixing on pre-normed input. Returns (y, carry, state)."""
+    b, s, _ = xz.shape
+    d_in, nh, hp, n = mamba2.ssm_dims(cfg)
+    zxbcdt = xz @ p["in_proj"].to(xz.dtype)
+    # jnp.split takes split points, torch.split sizes
+    z, xin, bmat, cmat, dt = torch.split(zxbcdt, [d_in, d_in, n, n, nh],
+                                         dim=-1)
+    conv_in = torch.cat([xin, bmat, cmat], dim=-1)
+    conv_out, new_carry = rglru.temporal_conv(
+        {"conv_w": p["conv_w"]}, conv_in, cfg.ssm_conv_width, conv_carry)
+    conv_out = F.silu(conv_out.float()).to(xz.dtype)
+    xin, bmat, cmat = torch.split(conv_out, [d_in, n, n], dim=-1)
+    dt = F.softplus(dt.float() + p["dt_bias"].float())
+    xh = xin.reshape(b, s, nh, hp)
+    y, state = mamba2.ssd_chunked(xh, dt, p["a_log"], bmat, cmat,
+                                  cfg.ssm_chunk, init_state)
+    y = y + xh.float() * p["skip_d"].float()[None, None, :, None]
+    y = y.reshape(b, s, d_in).to(xz.dtype)
+    y = y * F.silu(z.float()).to(xz.dtype)
+    y = rms_norm(y, p["out_norm"])
+    return y @ p["out_proj"].to(xz.dtype), new_carry, state
+
+
+def _rec_gate(p, h):
+    # jax.nn.gelu's default is the tanh approximation
+    return F.gelu((h @ p["gate_proj"].to(h.dtype)).float(),
+                  approximate="tanh").to(h.dtype)
+
+
+_LRU_KEYS = ("w_a", "b_a", "w_x", "b_x", "lam")
+
+
+def _rec_mix(p, h, cfg, conv_carry=None, init_h=None):
+    """Griffin recurrent mixing on pre-normed input. Returns (y, carry,
+    final h)."""
+    gate = _rec_gate(p, h)
+    u = h @ p["rnn_proj"].to(h.dtype)
+    u, new_carry = rglru.temporal_conv({"conv_w": p["conv_w"]}, u,
+                                       cfg.ssm_conv_width, conv_carry)
+    u, h_last = rglru.rglru_scan({k: p[k] for k in _LRU_KEYS}, u,
+                                 cfg.rglru_c, init_h)
+    y = (gate * u) @ p["out_proj"].to(h.dtype)
+    return y, new_carry, h_last
+
+
+class Block(nn.Module):
+    """One layer of kind ``dense`` (pre-norm attention, then a pre-norm
+    FFN: SwiGLU, the audio GeLU MLP, or the binarized / logic FFN with
+    ``cfg.logic_mlp``), ``moe`` (attention, then the routed experts),
+    ``ssm`` (the Mamba-2 mixer alone) or ``rec`` (the RG-LRU mixer, then
+    SwiGLU)."""
+
+    def __init__(self, cfg: ModelConfig, kind: str = "dense", device=None):
         super().__init__()
-        self.cfg = cfg
-        _register(self, block_param_spec(cfg), _dtype(cfg), device)
+        self.cfg, self.kind = cfg, kind
+        self.window = layer_window(cfg, kind)
+        _register(self, block_param_spec(cfg, kind), _dtype(cfg), device)
         self.program = None         # the logic FFN's compiled program
 
     def params(self) -> dict:
         return dict(self.named_parameters(recurse=False))
 
     def ffn(self, p: dict, h: torch.Tensor) -> torch.Tensor:
+        if self.kind == "moe":
+            return moe.moe_forward(p, h, self.cfg)
+        if self.cfg.family == "audio":
+            return gelu_mlp(h, p["w_in"], p["w_out"])
         if not self.cfg.logic_mlp:
             return swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
         if self.program is None:
             return binary_ffn(p, h)
         return logic_ffn_apply(self.program, p, h)
 
-    def forward(self, x, positions, window: int = 0,
+    def forward(self, x, positions,
                 ffn_inputs: list | None = None) -> torch.Tensor:
         p = self.params()
+        if self.kind == "ssm":
+            y, _, _ = _ssm_mix(p, rms_norm(x, p["norm"]), self.cfg)
+            return x + y
         h = rms_norm(x, p["attn_norm"])
-        x = x + attn.attention_forward(p, h, self.cfg, positions=positions,
-                                       causal=True, window=window)
+        if self.kind == "rec":
+            x = x + _rec_mix(p, h, self.cfg)[0]
+        else:
+            x = x + attn.attention_forward(
+                p, h, self.cfg, positions=positions,
+                causal=not self.cfg.is_encoder, window=self.window)
         h = rms_norm(x, p["mlp_norm"])
         if ffn_inputs is not None:
             ffn_inputs.append(h)
@@ -159,58 +306,84 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """The dense decoder: ``embed``, ``blocks``, ``final_norm`` and (unless
-    the embeddings are tied) ``lm_head``, in ``cfg.param_dtype`` on
-    ``device`` (CUDA unless ``"cpu"``).  The parameters are allocated, not
+    """The model: ``embed`` (``frontend_proj`` for audio), ``blocks``,
+    ``final_norm`` and the head (``lm_head``; ``head`` for audio; the
+    embedding's transpose when tied), in ``cfg.param_dtype`` on ``device``
+    (CUDA unless ``"cpu"``).  The parameters are allocated, not
     initialized: :func:`init_params` fills them from a generator, and
     ``load_state_dict`` from carried-across weights."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        check_family(cfg)
+        if cfg.logic_mlp and cfg.family != "dense":
+            raise ValueError(f"{cfg.name}: logic_mlp swaps the dense "
+                             f"family's FFN, not the {cfg.family} family's")
         self.cfg = cfg
         self.device = resolve_device(device)
         _register(self, param_spec(cfg), _dtype(cfg), self.device)
-        self.blocks = nn.ModuleList(Block(cfg, self.device)
-                                    for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(Block(cfg, kind, self.device)
+                                    for kind in layer_kinds(cfg))
 
-    @property
-    def window(self) -> int:
-        return self.cfg.sliding_window
-
-    def embed_inputs(self, tokens: torch.Tensor
+    def embed_inputs(self, tokens=None, *, frames=None, vision=None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-        """tokens (B, S) -> (x (B, S, D), positions (B, S))."""
-        tokens = torch.as_tensor(tokens, device=self.device)
-        # the lookup as F.embedding: the same rows, and a backward that
-        # sums each row's gradient in a fixed order (indexing's
-        # accumulating backward does not)
-        x = F.embedding(tokens, self.embed.to(_cdtype(self.cfg)))
+        """(x (B, S, D), positions (B, S)) from the family's inputs:
+        ``frames`` (B, S, frontend_dim) for audio; ``tokens`` (B, S_t)
+        otherwise, after ``vision`` (B, n_vis, D), the stub patch
+        embeddings, for vlm."""
+        cfg, cdt = self.cfg, _cdtype(self.cfg)
+        audio, vlm = cfg.family == "audio", cfg.family == "vlm"
+        if (frames is not None) != audio or (tokens is not None) == audio \
+                or (vision is not None) != vlm:
+            raise ValueError(
+                f"{cfg.name} ({cfg.family}) takes "
+                + ("frames=" if audio else "tokens and vision=" if vlm
+                   else "tokens") + f"; got tokens={tokens is not None}, "
+                f"frames={frames is not None}, vision={vision is not None}")
+        if audio:
+            frames = torch.as_tensor(frames, device=self.device)
+            x = frames.to(cdt) @ self.frontend_proj.to(cdt)
+        else:
+            tokens = torch.as_tensor(tokens, device=self.device)
+            # the lookup as F.embedding: the same rows, and a backward
+            # that sums each row's gradient in a fixed order (indexing's
+            # accumulating backward does not)
+            x = F.embedding(tokens, self.embed.to(cdt))
+            if vlm:
+                vision = torch.as_tensor(vision, device=self.device)
+                x = torch.cat([vision.to(cdt), x], dim=1)
         b, s = x.shape[:2]
         positions = torch.arange(s, dtype=torch.int32,
                                  device=self.device)[None].expand(b, s)
         return x, positions
 
-    def forward(self, tokens: torch.Tensor,
-                ffn_inputs: list | None = None) -> torch.Tensor:
-        """Logits (B, S, padded_vocab) in float32.  ``ffn_inputs``, when
-        given, collects each block's FFN input (B, S, D) in order (and
-        turns remat off: a recomputed block would collect twice)."""
-        x, positions = self.embed_inputs(tokens)
+    def forward(self, tokens: torch.Tensor | None = None,
+                ffn_inputs: list | None = None, *, frames=None,
+                vision=None) -> torch.Tensor:
+        """Logits (B, S, padded_vocab) in float32 (for vlm, S counts the
+        vision tokens first).  ``ffn_inputs``, when given, collects each
+        block's FFN input (B, S, D) in order (ssm blocks have none), and
+        turns remat off: a recomputed block would collect twice."""
+        x, positions = self.embed_inputs(tokens, frames=frames,
+                                         vision=vision)
         remat = _REMAT.get(self.cfg.remat) if (
             torch.is_grad_enabled() and ffn_inputs is None) else None
         for blk in self.blocks:
             if remat is None:
-                x = blk(x, positions, self.window, ffn_inputs)
+                x = blk(x, positions, ffn_inputs)
             else:
-                x = remat(blk, x, positions, self.window)
+                x = remat(blk, x, positions)
         x = rms_norm(x, self.final_norm)
         return self.lm_logits(x)
 
     def lm_logits(self, x: torch.Tensor) -> torch.Tensor:
         """(..., D) -> (..., padded_vocab) float32 logits, the pad columns
         past ``vocab_size`` at -1e30."""
-        head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
+        if self.cfg.family == "audio":
+            head = self.head
+        elif self.cfg.tie_embeddings:
+            head = self.embed.T
+        else:
+            head = self.lm_head
         logits = (x @ head.to(x.dtype)).float()
         if self.cfg.padded_vocab != self.cfg.vocab_size:
             logits[..., self.cfg.vocab_size:] = -1e30
@@ -229,10 +402,20 @@ _REMAT = {
 
 
 def train_loss(model: Transformer, batch: dict) -> torch.Tensor:
-    """Mean next-token cross-entropy of ``batch["tokens"]`` (B, S): the
-    logits at positions 0..S-2 against the tokens at 1..S-1."""
+    """The reference's loss of ``batch``: for audio the cross-entropy of
+    ``frames``' logits against ``labels`` (B, S); for vlm the next-token
+    loss of the text after the ``vision`` embeddings; otherwise the mean
+    next-token cross-entropy of ``tokens`` (B, S), the logits at 0..S-2
+    against the tokens at 1..S-1."""
+    cfg = model.cfg
+    logits = model(batch.get("tokens"), frames=batch.get("frames"),
+                   vision=batch.get("vision"))
+    if cfg.family == "audio":
+        labels = torch.as_tensor(batch["labels"], device=model.device)
+        return softmax_xent(logits, labels)
     tokens = torch.as_tensor(batch["tokens"], device=model.device)
-    logits = model(tokens)
+    if cfg.family == "vlm":
+        logits = logits[:, batch["vision"].shape[1]:]
     return softmax_xent(logits[:, :-1], tokens[:, 1:])
 
 
@@ -241,9 +424,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> Transformer:
     """A :class:`Transformer` with every parameter drawn from
     ``generator`` (on the model's device): normal(0.02) weights, unit
-    norms, zero biases, in ``cfg.param_dtype``."""
+    norms, zero biases, the RG-LRU's ``lam`` at 4.0 (the reference's
+    Griffin init), in ``cfg.param_dtype``."""
     model = Transformer(cfg, device)
     for mod in (model, *model.blocks):
         for name, param in mod.named_parameters(recurse=False):
-            _INITS[mod.init_kinds[name]](param, generator)
+            if name == "lam":
+                param.fill_(4.0)
+            else:
+                _INITS[mod.init_kinds[name]](param, generator)
     return model

@@ -19,6 +19,10 @@ async checkpoints every ``checkpoint_every`` steps and a final one, a
 preemption-triggered stop, the straggler monitor, and auto-resume from
 the newest complete checkpoint.
 
+Only the dense family trains (:func:`check_trainable`): the other
+families serve, but their training has not been held against the
+reference (ROADMAP queue 1 item 7).
+
 No mesh: the reference's FSDP x TP shardings, donation, ``seq_parallel``
 and tensor parallelism have no meaning on one device and come with the
 sharded trainer (ROADMAP queue 1 item 3).  PyTorch runs eagerly, so there
@@ -158,6 +162,16 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig) -> Callable:
     return train_step
 
 
+def check_trainable(cfg: ModelConfig) -> None:
+    """The port trains the dense family only: no other family's training
+    (its loss, gradients, the int8 round trip over its layer stacks) has
+    been held against the reference."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: training the {cfg.family} family is not ported "
+            "(ROADMAP queue 1 item 7); the port trains the dense family")
+
+
 class Trainer:
     """The training loop on one device (CUDA unless ``device="cpu"``).
     After :meth:`run` the trained model and optimizer state stay on the
@@ -165,6 +179,7 @@ class Trainer:
 
     def __init__(self, cfg: ModelConfig, tc: TrainConfig, device,
                  global_batch: int, seq_len: int):
+        check_trainable(cfg)
         self.cfg, self.tc = cfg, tc
         self.device = resolve_device(device)
         self.pipeline = TokenPipeline(cfg.vocab_size, global_batch, seq_len,

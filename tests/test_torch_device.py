@@ -629,3 +629,49 @@ def test_prefill_decode_on_card_matches_forward_and_cpu(cuda):
                                        atol=2e-3)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "grok-1-314b",
+                                  "mamba2-370m", "recurrentgemma-2b",
+                                  "internvl2-76b", "hubert-xlarge"])
+def test_family_on_card_matches_cpu(cuda, arch):
+    """Each family's smoke model in float32 on the card (TF32 off): the
+    forward against the CPU's logits at 1e-4, and for the decoders
+    prefill plus decode against the card's own forward at 2e-3."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = get_config(arch, smoke=True)
+        cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        card = Transformer(cfg, device=cuda)
+        card.load_state_dict(cpu.state_dict())
+        rng = np.random.default_rng(1)
+        if cfg.family == "audio":
+            frames = torch.from_numpy(rng.normal(
+                size=(2, 16, cfg.frontend_dim)).astype(np.float32))
+            torch.testing.assert_close(card(frames=frames.to(cuda)).cpu(),
+                                       cpu(frames=frames), rtol=1e-4,
+                                       atol=1e-4)
+            return
+        S, P = 24, 19
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, S)))
+        vis = {}
+        if cfg.family == "vlm":
+            vis["vision"] = torch.from_numpy(rng.normal(
+                size=(2, cfg.vision_tokens, cfg.d_model)).astype(np.float32))
+        off = cfg.vision_tokens if vis else 0
+        card_vis = {k: v.to(cuda) for k, v in vis.items()}
+        full = card(toks.to(cuda), **card_vis)
+        torch.testing.assert_close(full.cpu(), cpu(toks, **vis), rtol=1e-4,
+                                   atol=1e-4)
+        lp, cache = prefill(card, toks[:, :P].to(cuda), context=S + off,
+                            **card_vis)
+        torch.testing.assert_close(lp, full[:, :off + P], rtol=2e-3,
+                                   atol=2e-3)
+        for t in range(P, S):
+            lg, cache = decode_step(card, toks[:, t:t + 1].to(cuda), cache)
+            torch.testing.assert_close(lg[:, 0], full[:, off + t],
+                                       rtol=2e-3, atol=2e-3)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

@@ -15,7 +15,8 @@ FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
 # modules every walk must reach (the XNOR GEMM, the NullaNet flow, the
 # front door, its traffic, the tools, the serving examples, the Verilog
 # front end and the quickstart, the LM serving path, and the LM training
-# path: optimizer, trainer, checkpoints, launcher and examples)
+# path: optimizer, trainer, checkpoints, launcher and examples, and the
+# MoE, SSM and RG-LRU layers of the other model families)
 EXPECTED = ("repro_torch.kernels.native", "repro_torch.kernels.xnor_gemm.ops",
             "repro_torch.kernels.xnor_gemm.kernel",
             "repro_torch.kernels.xnor_gemm.ref", "repro_torch.data.synthetic",
@@ -42,7 +43,9 @@ EXPECTED = ("repro_torch.kernels.native", "repro_torch.kernels.xnor_gemm.ops",
             "repro_torch.train.resilience", "repro_torch.train.checkpoint",
             "repro_torch.train.trainer", "repro_torch.launch.train",
             "repro_torch.convert", "repro_torch.examples.train_lm",
-            "repro_torch.examples.logic_mlp_swap")
+            "repro_torch.examples.logic_mlp_swap",
+            "repro_torch.models.moe", "repro_torch.models.mamba2",
+            "repro_torch.models.rglru")
 
 
 def test_package_imports_without_jax_or_reference():

@@ -158,7 +158,7 @@ def test_layer_matches_reference(fn):
 
 
 # ---------------------------------------------------------------------------
-# configs, the family gate, weights carried across, the launcher
+# configs, weights carried across, the launcher
 # ---------------------------------------------------------------------------
 
 def test_configs_equal_the_reference():
@@ -167,17 +167,6 @@ def test_configs_equal_the_reference():
             assert dataclasses.asdict(get_config(arch, smoke)) == \
                 dataclasses.asdict(ref_get_config(arch, smoke)), arch
     assert len(list(all_cells())) == 40
-
-
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "mamba2-370m",
-                                  "recurrentgemma-2b", "hubert-xlarge",
-                                  "internvl2-76b"])
-def test_other_families_are_refused(arch):
-    cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Transformer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_decode_cache(cfg, 1, 8, device="cpu")
 
 
 def test_reference_params_must_match_the_spec():
