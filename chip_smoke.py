@@ -19,6 +19,11 @@ that every path took the scratch variant its size implies.  Finally it
 times both kernels at the main path's shapes (with their time per step,
 and the device-memory variant), and the engine's waves (median and p90 of 100, a per-phase split from CUDA
 events, and a torch.profiler window for the device's idle share).
+``sharded_serving``: the engine's split path across devices (the
+reference's ``shard_map``) on the one card, fc1 and its pipeline through
+``LogicEngine(shard=True)`` and over two shards of ``cuda:0``, bit-exact
+against the oracle and the unsharded engine with one K2 launch a shard a
+wave.
 
 Then the XNOR-popcount GEMM (K3): bit-exact against its plain version on
 ragged shapes, driven through ``xnor_gemm`` at the two full-width shapes of
@@ -62,8 +67,12 @@ parameters, bf16, float32 moments, remat "full", WSD) trained by
 checkpoint, one step profiled, then the loss on one fixed batch made to
 fall.  ``train_parity``: the same widths at 2 layers in float32, one step
 on the card against the CPU, and a resumed run against an unbroken one.
-``logic_swap_train``: the logic-FFN swap trained with STE, converted and
-served through K1, with its held-out agreement.
+``sharded_train``: the sharded trainer on a one-rank NCCL group and its
+(1, 1) mesh, one full-width float32 step against the one-device step and
+every leaf's placements against the rule table, then minicpm-2b at full
+size through the launcher on the mesh.  ``logic_swap_train``: the
+logic-FFN swap trained with STE, converted and served through K1, with
+its held-out agreement.
 
 Then the other model families at their published widths, random weights
 from ``--seed`` (``families``, one line each): mixtral-8x7b (MoE, 16 of
@@ -80,9 +89,10 @@ forward), every request finished with in-vocabulary ids.  They launch no
 ported kernel.
 
 Output, one JSON object per line: ``env``, ``build``, ``parity``,
-``main_path``, ``timing``, ``engine``, ``xnor``, ``flow``, ``calibrate``,
-``frontdoor``, ``warm_start``, ``quickstart``, ``logic_ffn``, ``lm``,
-``train_full``, ``train_parity``, ``logic_swap_train`` and ``families``
+``main_path``, ``timing``, ``engine``, ``sharded_serving``, ``xnor``,
+``flow``, ``calibrate``, ``frontdoor``, ``warm_start``, ``quickstart``,
+``logic_ffn``, ``lm``, ``train_full``, ``train_parity``,
+``sharded_train``, ``logic_swap_train`` and ``families``
 (one line per model and a last one with the phase's kernel launches);
 then the
 card's name and power limit as nvidia-smi prints them; then a ``kernels``
@@ -204,6 +214,15 @@ TRAIN_PARITY = dict(n_layers=2, global_batch=2, seq_len=128, grad_accum=2,
                     lr=1e-3)
 TRAIN_PARITY_RTOL = 1e-4             # loss and grad_norm, card vs CPU
 TRAIN_RESUME_RTOL = 1e-3             # |resumed - unbroken| / |update|
+# the split path across devices: fc1 and its 4-program pipeline through
+# LogicEngine(shard=True) and over two shards on the one card; waves timed
+SHARD_SLABS = 4
+SHARD_TIMED_WAVES = 30
+# the sharded trainer on a one-rank NCCL group and a (1, 1) mesh: the
+# parity step at full width and TRAIN_PARITY's layers in float32 against
+# the one-device step, then minicpm-2b at full size through the launcher
+SHARDED_TRAIN = dict(steps=3, global_batch=8, seq_len=512)
+SHARDED_STEP_RTOL = 1e-6             # loss and grad_norm; params: atol
 # the other families at full width, random weights from --seed: per model
 # the layers of each run (its whole depth where it fits; a cut is listed
 # under "reduced"), and the float32 self-consistency run's batch, tokens
@@ -700,6 +719,8 @@ def run(args, torch) -> None:
         eng_out[name]["profiled"] = profile_waves(
             torch, lambda: [eng.serve(graph, s) for s in slabs])
     emit(eng_out)
+    sharded = sharded_serving_phase(torch, dev, smi, graph, engines,
+                                    rand_bits)
 
     xnor = xnor_phase(args, torch, dev, cuda_ms, smi)
     flow = flow_phase(torch, dev)
@@ -721,8 +742,9 @@ def run(args, torch) -> None:
     quick = quickstart_phase(torch, dev, smi)
     lffn = logic_ffn_phase(args, torch, dev, smi, cuda_ms)
     lm_phase(args, torch, dev, smi)
-    train_full_phase(args, torch, dev, smi)
+    full = train_full_phase(args, torch, dev, smi)
     train_parity_phase(args, torch, dev, smi)
+    sharded_train_phase(args, torch, dev, smi, full)
     lswap = logic_swap_train_phase(args, torch, dev, smi, cuda_ms)
     families_phase(args, torch, dev, smi)
     max_err["logic"] = max(max_err["logic"], quick["max_abs_err"],
@@ -732,7 +754,8 @@ def run(args, torch) -> None:
              "calibrate": calib["launches"], "frontdoor": door["launches"],
              "warm_start": warm["launches"], "quickstart": quick["launches"],
              "logic_ffn": lffn["launches"],
-             "logic_swap_train": lswap["launches"]}
+             "logic_swap_train": lswap["launches"],
+             "sharded_serving": sharded["launches"]}
     check(xnor["launches"]["xnor"] == len(XNOR_SHAPES),
           "xnor_gemm made one K3 launch per full-width call")
 
@@ -788,6 +811,124 @@ def run(args, torch) -> None:
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
+
+
+def sharded_serving_phase(torch, dev, smi, graph, engines,
+                          rand_bits) -> dict:
+    """The engine's split path (the reference's ``shard_map`` over a
+    1-axis mesh) on the one card: fc1 and its 4-program pipeline served by
+    ``LogicEngine(shard=True)`` on ``cuda:0`` and by
+    ``LogicEngine(devices=[cuda:0, cuda:0])`` (two shards, each on its own
+    stream), sharing the unsharded engines' caches, over the main path's
+    ragged requests plus full-capacity slabs.  Gated: every output equal
+    to the numpy oracle and to the unsharded engine; one K2 launch a shard
+    a wave, all on the shared variant; ``stats()`` reporting the devices
+    and the split; a capacity of 8,190 rounded up to the two shards'
+    64-row quantum and served exactly.  Reported: the wave p50 / p90,
+    unsharded, one shard and two shards, and the visible card count."""
+    import numpy as np
+
+    from repro_torch.kernels.logic_dsp import kernel as K
+    from repro_torch.serve import LogicEngine
+
+    sizes = (1, 33, 700, 4096, 8192, 10000)
+    inputs = [rand_bits(n, FANIN) for n in sizes] + [
+        rand_bits(CAPACITY, FANIN) for _ in range(SHARD_SLABS)]
+    slabs = inputs[len(sizes):]
+    arts = {name: artifact_of(eng) for name, eng in engines.items()}
+    t0 = time.perf_counter()
+    oracle = {name: [art.execute(x) for x in inputs]
+              for name, art in arts.items()}
+    oracle_s = time.perf_counter() - t0
+    unsharded = {name: [eng.serve(graph, x) for x in inputs]
+                 for name, eng in engines.items()}
+    layouts = {"one_shard": dict(device=dev, shard=True),
+               "two_shards": dict(devices=[dev, dev])}
+    shards = {"one_shard": 1, "two_shards": 2}
+    runs = {(name, label): LogicEngine(eng.spec, capacity=CAPACITY,
+                                       cache=eng.cache, **kw)
+            for name, eng in engines.items()
+            for label, kw in layouts.items()}
+    odd = LogicEngine(engines["monolithic"].spec, capacity=CAPACITY - 2,
+                      devices=[dev, dev], cache=engines["monolithic"].cache)
+    x_odd = rand_bits(CAPACITY - 2, FANIN)
+
+    K.reset_launch_counts()                 # sharded path starts here
+    per = {}
+    for (name, label), eng in runs.items():
+        before = K.launch_count("mega")
+        uids = [eng.submit(graph, x) for x in inputs]
+        eng.drain()
+        torch.cuda.synchronize()
+        outs = [eng.result(u) for u in uids]
+        st = eng.stats()
+        per[f"{name}/{label}"] = {
+            "shards": shards[label], "waves": st["invocations"],
+            "k2_launches": K.launch_count("mega") - before,
+            "n_devices": st["n_devices"], "sharded": st["sharded"],
+            "capacity": st["capacity"],
+            "exact_vs_oracle": all(bool((o == w).all()) for o, w in
+                                   zip(outs, oracle[name])),
+            "exact_vs_unsharded": all(bool((o == w).all()) for o, w in
+                                      zip(outs, unsharded[name]))}
+    before = K.launch_count("mega")
+    got_odd = odd.serve(graph, x_odd)
+    torch.cuda.synchronize()
+    odd_out = {"asked": CAPACITY - 2, "capacity": odd.capacity,
+               "k2_launches": K.launch_count("mega") - before,
+               "stats": {k: odd.stats()[k] for k in ("n_devices",
+                                                     "sharded")},
+               "exact_vs_oracle": bool((got_odd == arts["monolithic"]
+                                        .execute(x_odd)).all())}
+    launches = {k: K.launch_count(k) for k in ("logic", "mega", "xnor")}
+    by_variant = variant_counts(K)          # sharded path ends here
+
+    timed = {}
+    for label, eng in (("unsharded", engines["monolithic"]),
+                       ("one_shard", runs["monolithic", "one_shard"]),
+                       ("two_shards", runs["monolithic", "two_shards"])):
+        eng.serve(graph, slabs[0])                          # warm
+        times, same = [], True
+        for i in range(SHARD_TIMED_WAVES):
+            t1 = time.perf_counter()
+            o = eng.serve(graph, slabs[i % len(slabs)])
+            times.append(time.perf_counter() - t1)
+            same &= bool((o == unsharded["monolithic"][
+                len(sizes) + i % len(slabs)]).all())
+        ms = np.asarray(times) * 1e3
+        timed[label] = {"wave_ms_p50": float(np.median(ms)),
+                        "wave_ms_p90": float(np.percentile(ms, 90)),
+                        "exact": same}
+    out = {"phase": "sharded_serving", "nvidia_smi": smi,
+           "device_count": torch.cuda.device_count(),
+           "capacity": CAPACITY, "requests": list(sizes),
+           "slabs": SHARD_SLABS, "runs": per, "odd_capacity": odd_out,
+           "launches": launches, "launches_by_variant": by_variant,
+           "timed_waves": SHARD_TIMED_WAVES, "wave_ms": timed,
+           "oracle_s": oracle_s}
+    emit(out)
+    for key, r in per.items():
+        check(r["exact_vs_oracle"] and r["exact_vs_unsharded"],
+              f"sharded_serving {key}: every output equals the oracle and "
+              "the unsharded engine")
+        check(r["waves"] > 0 and r["k2_launches"] == r["shards"] *
+              r["waves"], f"sharded_serving {key}: one K2 launch a shard a "
+              f"wave ({r['k2_launches']} vs {r['shards']} x {r['waves']})")
+        check(r["n_devices"] == r["shards"] and r["sharded"],
+              f"sharded_serving {key}: stats report the split: {r}")
+    check(odd_out["capacity"] == CAPACITY and odd_out["exact_vs_oracle"]
+          and odd_out["k2_launches"] == 2 and
+          odd_out["stats"] == {"n_devices": 2, "sharded": True},
+          f"sharded_serving: capacity {CAPACITY - 2} rounds up to the "
+          f"64-row quantum and serves exactly: {odd_out}")
+    check(launches["mega"] == sum(r["k2_launches"] for r in per.values())
+          + odd_out["k2_launches"] and launches["logic"] == 0 and
+          by_variant["mega/shared"] == launches["mega"],
+          f"sharded_serving: every launch is a shared-variant K2 launch: "
+          f"{launches} {by_variant}")
+    check(all(v["exact"] for v in timed.values()),
+          "sharded_serving: the timed waves equal the unsharded engine's")
+    return out
 
 
 def xnor_phase(args, torch, dev, cuda_ms, smi) -> dict:
@@ -2592,6 +2733,165 @@ def train_parity_phase(args, torch, dev, smi) -> dict:
           f"train_parity: the resumed run reaches step 4: {r['steps']}")
     check(r["relative"] <= TRAIN_RESUME_RTOL,
           f"train_parity: resumed == unbroken run ({r['relative']})")
+    return out
+
+
+def sharded_train_phase(args, torch, dev, smi, full: dict) -> dict:
+    """The sharded trainer on the card: a one-rank NCCL process group
+    (started here from a FileStore under ``build/``, destroyed after) and
+    the host mesh (data 1, model 1).  (a) minicpm-2b at full width and
+    ``TRAIN_PARITY``'s layers in float32 (TF32 off): one step of
+    ``Trainer(mesh=)`` against the one-device ``Trainer``'s from the same
+    seed and batch.  Gated: ``loss`` and ``grad_norm`` within
+    ``SHARDED_STEP_RTOL`` and every parameter within it absolutely; every
+    parameter's and moment's placements the rule table's
+    (``train/sharding.py``).  (b) minicpm-2b at full size in bf16 through
+    ``launch/train.py``'s ``build``, which takes the group's mesh:
+    ``SHARDED_TRAIN`` steps with the final checkpoint (gathered, rank 0
+    writing; removed after).  Gated: the trainer is on the mesh, every
+    loss and grad norm finite, the checkpoint written.  Reported: step
+    p50, tokens/s and peak memory beside ``train_full``'s."""
+    import shutil
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.pspec_utils import mesh_axes, placements
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.train import sharding as shd
+
+    tp = TRAIN_PARITY
+    cfg = get_config(TRAIN_ARCH).with_(
+        n_layers=tp["n_layers"], param_dtype="float32",
+        compute_dtype="float32")
+    big = get_config(TRAIN_ARCH)
+    st = SHARDED_TRAIN
+    tokens = st["global_batch"] * st["seq_len"]
+    out = {"phase": "sharded_train", "nvidia_smi": smi,
+           "device_count": torch.cuda.device_count(), "backend": "nccl",
+           "world_size": 1, "mesh": {"data": 1, "model": 1},
+           "disk": need_disk(scratch_dir(), big.param_count() * 10,
+                             "sharded_train")}
+    store = Path(tempfile.mkdtemp(prefix="sharded_train.",
+                                  dir=scratch_dir())) / "store"
+    ckdir = tempfile.mkdtemp(prefix="sharded_train.", dir=scratch_dir())
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    handlers = saved_signal_handlers()
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1, device_id=dev)
+    try:
+        mesh = make_host_mesh(model=1, device=dev)
+        # (a) the (1, 1) mesh's step against the one-device step
+        torch.backends.cuda.matmul.allow_tf32 = False
+        tc = TrainConfig(lr=tp["lr"], warmup_steps=1, total_steps=10,
+                         schedule="wsd", grad_accum=tp["grad_accum"],
+                         seed=args.seed, checkpoint_dir=ckdir,
+                         checkpoint_every=100)
+        res, params = {}, {}
+        for name, m in (("one_device", None), ("mesh", mesh)):
+            t = Trainer(cfg, tc, dev, tp["global_batch"], tp["seq_len"],
+                        mesh=m)
+            model, opt = t.init_state()
+            t0 = time.perf_counter()
+            model, opt, metrics = t.train_step(model, opt, t.batch(0))
+            torch.cuda.synchronize()
+            res[name] = {k: float(v) for k, v in metrics.items()}
+            res[name]["seconds"] = time.perf_counter() - t0
+            if m is None:
+                params[name] = {n: p.detach() for n, p in
+                                model.named_parameters()}
+            else:
+                params[name] = {n: d.to_local() for n, d in
+                                model.params.items()}
+                want = shd.flat_param_pspecs(cfg, mesh_axes(mesh))
+                want_m = shd.flat_moment_pspecs(cfg, mesh_axes(mesh))
+                wrong = [n for n, d in model.params.items()
+                         if tuple(d.placements) != placements(mesh, want[n])
+                         or tuple(opt.mu[n].placements) != placements(
+                             mesh, want_m[n])]
+                out["placements"] = {
+                    "leaves": len(model.params), "wrong": wrong[:5],
+                    "blocks.0.wq": [str(p) for p in
+                                    model.params["blocks.0.wq"].placements],
+                    "embed": [str(p) for p in
+                              model.params["embed"].placements]}
+            del model, opt, t
+        diff = max(float((params["mesh"][n] - p).abs().max())
+                   for n, p in params["one_device"].items())
+        same = all(torch.equal(params["mesh"][n], p)
+                   for n, p in params["one_device"].items())
+        out["step"] = {**res, "params_max_abs_diff": diff,
+                       "bit_equal": same, "rtol": SHARDED_STEP_RTOL,
+                       "n_layers": cfg.n_layers, "dtype": "float32"}
+        del params
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+        torch.cuda.empty_cache()
+
+        # (b) full size through the launcher, on the group's mesh
+        trainer, _ = launch_train.build([
+            "--arch", TRAIN_ARCH, "--steps", str(st["steps"]),
+            "--global-batch", str(st["global_batch"]),
+            "--seq-len", str(st["seq_len"]), "--checkpoint-dir", ckdir,
+            "--checkpoint-every", str(10 * st["steps"]),
+            "--device", str(dev)])
+        on_mesh = trainer.mesh is not None and \
+            tuple(trainer.mesh.shape) == (1, 1)
+        saves = timed_saves(trainer)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        hist = trainer.run(st["steps"], log_every=0)
+        run_s = time.perf_counter() - t0
+        step_s = np.asarray([h["seconds"] for h in hist[1:]])
+        p50 = float(np.median(step_s))
+        ft = full["train"]
+        out["train"] = {
+            "model": big.name, "params": big.param_count(), **st,
+            "on_mesh": on_mesh, "loss": [h["loss"] for h in hist],
+            "grad_norm": [h["grad_norm"] for h in hist],
+            "first_step_s": hist[0]["seconds"], "step_s_p50": p50,
+            "tokens_per_s": tokens / p50, "run_s": run_s,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+            "checkpoint": {"bytes": dir_bytes(ckdir), "saves": [
+                {"seconds": s, "step": k} for s, k in saves]},
+            "train_full": {
+                "step_s_p50": ft["step_s_p50"],
+                "tokens_per_s": ft["tokens_per_s"],
+                "max_memory_allocated": ft["max_memory_allocated"],
+                "global_batch": full["global_batch"],
+                "seq_len": full["seq_len"],
+                "grad_accum": full["grad_accum"]}}
+        del trainer
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+        restore_signal_handlers(handlers)
+        dist.destroy_process_group()
+        shutil.rmtree(ckdir, ignore_errors=True)
+        shutil.rmtree(store.parent, ignore_errors=True)
+    torch.cuda.empty_cache()
+    emit(out)
+    s = out["step"]
+    for k in ("loss", "grad_norm"):
+        check(math.isfinite(s["mesh"][k]) and math.isclose(
+            s["mesh"][k], s["one_device"][k], rel_tol=SHARDED_STEP_RTOL),
+            f"sharded_train: {k} on the (1, 1) mesh == one device "
+            f"({s['mesh'][k]} vs {s['one_device'][k]})")
+    check(s["params_max_abs_diff"] <= SHARDED_STEP_RTOL,
+          f"sharded_train: parameters on the mesh == one device "
+          f"({s['params_max_abs_diff']})")
+    check(not out["placements"]["wrong"],
+          f"sharded_train: every leaf takes the rule table's placements: "
+          f"{out['placements']}")
+    tr = out["train"]
+    check(tr["on_mesh"], "sharded_train: launch.train built the mesh")
+    check(len(tr["loss"]) == st["steps"] and
+          all(math.isfinite(v) for v in tr["loss"] + tr["grad_norm"]),
+          f"sharded_train: {st['steps']} finite steps at full size")
+    check(tr["checkpoint"]["saves"] and
+          tr["checkpoint"]["saves"][-1]["step"] == st["steps"],
+          "sharded_train: the final checkpoint was written")
     return out
 
 

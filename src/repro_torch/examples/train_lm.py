@@ -4,8 +4,10 @@ steps.
     PYTHONPATH=src python -m repro_torch.examples.train_lm [--steps 300]
         [--resume] [--device cpu]
 
-The port's counterpart of ``examples/train_lm.py`` on one device (CUDA
-unless ``--device cpu``): the trainer's step (WSD schedule, gradient
+The port's counterpart of ``examples/train_lm.py`` (CUDA unless
+``--device cpu``): the sharded trainer on the host mesh (FSDP x TP rules
+degrade gracefully to one rank: a process group of this process alone, or
+every rank torchrun starts), the trainer's step (WSD schedule, gradient
 accumulation over 2 micro-batches, clipping, AdamW), async checkpointing
 and auto-resume (``--resume`` keeps the checkpoint directory), the
 straggler monitor and the stateless-seekable data pipeline.
@@ -16,6 +18,9 @@ import shutil
 import tempfile
 
 from repro_torch.configs import get_config
+from repro_torch.launch.mesh import (destroy, distributed_env,
+                                     init_distributed, init_single_process,
+                                     make_host_mesh)
 from repro_torch.train import TrainConfig, Trainer
 
 
@@ -42,8 +47,15 @@ def main(argv=None) -> list[dict]:
     tc = TrainConfig(lr=6e-4, warmup_steps=30, total_steps=args.steps,
                      schedule="wsd", grad_accum=2,
                      checkpoint_dir=ckpt_dir, checkpoint_every=100)
-    trainer = Trainer(cfg, tc, args.device, global_batch=8, seq_len=256)
-    history = trainer.run(args.steps, log_every=25)
+    device = init_distributed(args.device) if distributed_env() else \
+        init_single_process(args.device)
+    try:
+        mesh = make_host_mesh(device=device)
+        trainer = Trainer(cfg, tc, device, global_batch=8, seq_len=256,
+                          mesh=mesh)
+        history = trainer.run(args.steps, log_every=25)
+    finally:
+        destroy()
     first, last = history[0]["loss"], history[-1]["loss"]
     print(f"loss: {first:.3f} -> {last:.3f} over {len(history)} steps "
           f"({'improved' if last < first else 'NO IMPROVEMENT'})")

@@ -3,11 +3,21 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm-2b \\
         --smoke --steps 100 --global-batch 8 --seq-len 128 [--device cpu]
 
-The port's counterpart of ``src/repro/launch/train.py`` on one device
-(``--device``: CUDA unless ``cpu``), with the reference's flags and the
-architecture's own ``LR_SCHEDULE`` (minicpm's WSD; cosine otherwise).
-``--model-parallel`` above 1 is refused: the sharded trainer is ROADMAP
-queue 1 item 3.  A family other than dense raises ``NotImplementedError``
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch qwen3-8b --smoke --model-parallel 2 [--device cpu]
+
+The port's counterpart of ``src/repro/launch/train.py``, with the
+reference's flags and the architecture's own ``LR_SCHEDULE`` (minicpm's
+WSD; cosine otherwise).  Under torchrun (``RANK``, ``WORLD_SIZE``,
+``MASTER_ADDR``, ``MASTER_PORT`` set) every rank joins the process group
+(NCCL on CUDA, gloo with ``--device cpu``) and trains on the host mesh
+(data, model) = (world / ``--model-parallel``, ``--model-parallel``),
+the sharded trainer; so does a caller that started a process group
+itself before :func:`build`.  A ``--model-parallel`` that does not divide
+the world is refused.  Without a group it trains in one process on one
+device (``--device``: CUDA unless ``cpu``), and refuses a
+``--model-parallel`` above 1, since one process has no mesh of that
+size.  A family other than dense raises ``NotImplementedError``
 (``Trainer``'s ``check_trainable``; ROADMAP queue 1 item 7).
 """
 from __future__ import annotations
@@ -15,8 +25,12 @@ from __future__ import annotations
 import argparse
 import importlib
 
+import torch.distributed as dist
+
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.registry import _MODULES
+from repro_torch.launch.mesh import (distributed_env, init_distributed,
+                                     make_host_mesh)
 from repro_torch.train import TrainConfig, Trainer
 from repro_torch.train.trainer import _default_checkpoint_dir
 
@@ -39,10 +53,18 @@ def build(argv=None) -> tuple[Trainer, argparse.Namespace]:
     ap.add_argument("--device", default=None,
                     help="where the model trains: CUDA unless 'cpu'")
     args = ap.parse_args(argv)
-    if args.model_parallel > 1:
-        ap.error("--model-parallel > 1 needs the sharded trainer, which "
-                 "is not ported yet (ROADMAP queue 1 item 3); the port "
-                 "trains on one device")
+    mesh, device = None, args.device
+    if distributed_env():
+        device = init_distributed(args.device)
+    if dist.is_initialized():
+        try:
+            mesh = make_host_mesh(model=args.model_parallel, device=device)
+        except ValueError as e:
+            ap.error(str(e))
+    elif args.model_parallel > 1:
+        ap.error(f"--model-parallel {args.model_parallel} needs a mesh of "
+                 f"{args.model_parallel} ranks; one process has none: run "
+                 "it under torchrun")
 
     cfg = get_config(args.arch, smoke=args.smoke)
     # arch-specific recipe (e.g. minicpm's WSD schedule)
@@ -55,8 +77,8 @@ def build(argv=None) -> tuple[Trainer, argparse.Namespace]:
         grad_accum=args.grad_accum, compress_grads=args.compress_grads,
         checkpoint_dir=args.checkpoint_dir,
         checkpoint_every=args.checkpoint_every)
-    return Trainer(cfg, tc, args.device, args.global_batch,
-                   args.seq_len), args
+    return Trainer(cfg, tc, device, args.global_batch, args.seq_len,
+                   mesh=mesh), args
 
 
 def main(argv=None) -> list[dict]:

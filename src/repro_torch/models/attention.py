@@ -26,8 +26,30 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.models.layers import DTYPES, apply_rope, rms_norm
+from repro_torch.models.pspec_utils import (active_mesh, constrain,
+                                            dp_axes, mesh_axes)
 
 NEG_INF = -1e30
+
+
+def _constrain_qkv(q, k, v, cfg):
+    """In-attention layout choice, the reference's: if the head count
+    divides the 'model' axis, leave the heads to their sharding;
+    otherwise shard the query sequence over 'model' (sequence-parallel
+    attention: keys/values gathered, queries local)."""
+    mesh = active_mesh()
+    if mesh is None:
+        return q, k, v
+    mesh = mesh_axes(mesh)
+    if "model" not in mesh.axis_names or "model" in dp_axes():
+        return q, k, v
+    model = mesh.shape["model"]
+    if cfg.n_heads % model == 0:
+        return q, k, v
+    q = constrain(q, "dp", "model", None, None)
+    k = constrain(k, "dp", None, None, None)
+    v = constrain(v, "dp", None, None, None)
+    return q, k, v
 
 
 class KVCache(NamedTuple):
@@ -67,7 +89,7 @@ def _attend(params, x, cfg, positions, causal, window):
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     g = cfg.q_per_kv
-    q, k, v = _qkv(params, x, cfg)
+    q, k, v = _constrain_qkv(*_qkv(params, x, cfg), cfg)
     if not cfg.is_encoder:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)

@@ -13,13 +13,15 @@ identical for tokens within capacity:
     gate weights.  Assignments past an expert's capacity are dropped.
 
 Expert weights are stacked (E, d, ff).  The reference's ``constrain``
-(sharding annotations) is dropped: one device has no use for it.  The
-router runs in float32 from the compute-dtype input, as in the reference.
+calls (sharding annotations on the expert buffers) stand at its places;
+without an active mesh they do nothing.  The router runs in float32 from the compute-dtype input, as in the reference.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models.pspec_utils import constrain
 
 
 def router_probs(params, x):
@@ -110,10 +112,17 @@ def moe_sorted(params, x, cfg):
     xpad = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)
     buf = torch.gather(xpad, 1, inv[..., None].expand(-1, -1, d)
                        ).reshape(b, e, cap, d)
-    g = torch.einsum("becd,edf->becf", buf, params["w_gate"].to(x.dtype))
-    u = torch.einsum("becd,edf->becf", buf, params["w_up"].to(x.dtype))
+    # the reference's layout constraints on the expert buffers
+    buf = constrain(buf, "dp", None, None, None)
+    g = constrain(torch.einsum("becd,edf->becf", buf,
+                               params["w_gate"].to(x.dtype)),
+                  "dp", None, None, "model")
+    u = constrain(torch.einsum("becd,edf->becf", buf,
+                               params["w_up"].to(x.dtype)),
+                  "dp", None, None, "model")
     h = F.silu(g.float()).to(x.dtype) * u
     y = torch.einsum("becf,efd->becd", h, params["w_down"].to(x.dtype))
+    y = constrain(y, "dp", None, None, None)
     # a dropped assignment points at the dummy zero row, so its gate weight
     # contributes nothing regardless of value
     ypad = torch.cat([y.reshape(b, e * cap, d), y.new_zeros((b, 1, d))],
@@ -121,7 +130,7 @@ def moe_sorted(params, x, cfg):
     contrib = torch.gather(ypad, 1, a_slot.reshape(b, -1, 1).expand(
         -1, -1, d)).reshape(b, s, -1, d)                   # (B, S, k, D)
     out = torch.einsum("bskd,bsk->bsd", contrib.float(), gates.float())
-    return out.to(x.dtype)
+    return constrain(out.to(x.dtype), "dp", None, None)
 
 
 def moe_forward(params, x, cfg):

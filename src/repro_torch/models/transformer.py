@@ -32,10 +32,14 @@ only the matrix products' outputs and recomputes the rest, ``"none"`` is
 the plain loop.  :func:`train_loss` is the reference's loss: next-token,
 over the text only for vlm, against ``labels`` for audio.
 
-Dropped, because one device has no use for them: ``constrain`` (sharding
-annotations) and ``seq_parallel`` (sequence-sharded activations); they
-come with the sharded trainer (ROADMAP queue 1 item 3).  The reference's
-layer and group scans are a Python loop over the blocks.
+The reference's sharding annotations are here at the same places
+(``models/pspec_utils.constrain``: the residual stream between blocks,
+sequence-sharded over 'model' with ``cfg.seq_parallel``, and the logits);
+they redistribute DTensors under an active mesh and change nothing else.
+Under the sharded trainer a dense model runs its split products through
+:meth:`Transformer.set_tensor_parallel` (``models/tensor_parallel.py``);
+without it no collective runs.  The reference's layer and group scans are
+a Python loop over the blocks.
 """
 from __future__ import annotations
 
@@ -55,6 +59,7 @@ from repro_torch.models.layers import (DTYPES, gelu_mlp, normal_init,
                                        ones_init, rms_norm, softmax_xent,
                                        swiglu, zeros_init)
 from repro_torch.models.logic_mlp import binary_ffn, logic_ffn_apply
+from repro_torch.models.pspec_utils import constrain
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -271,6 +276,13 @@ class Block(nn.Module):
         self.window = layer_window(cfg, kind)
         _register(self, block_param_spec(cfg, kind), _dtype(cfg), device)
         self.program = None         # the logic FFN's compiled program
+        self.tp = None              # its TensorParallel share, if split
+
+    def _tp_in(self, h):
+        return h if self.tp is None else self.tp.enter(h)
+
+    def _tp_out(self, y):
+        return y if self.tp is None else self.tp.exit(y)
 
     def params(self) -> dict:
         return dict(self.named_parameters(recurse=False))
@@ -296,13 +308,13 @@ class Block(nn.Module):
         if self.kind == "rec":
             x = x + _rec_mix(p, h, self.cfg)[0]
         else:
-            x = x + attn.attention_forward(
-                p, h, self.cfg, positions=positions,
-                causal=not self.cfg.is_encoder, window=self.window)
+            x = x + self._tp_out(attn.attention_forward(
+                p, self._tp_in(h), self.cfg, positions=positions,
+                causal=not self.cfg.is_encoder, window=self.window))
         h = rms_norm(x, p["mlp_norm"])
         if ffn_inputs is not None:
             ffn_inputs.append(h)
-        return x + self.ffn(p, h)
+        return x + self._tp_out(self.ffn(p, self._tp_in(h)))
 
 
 class Transformer(nn.Module):
@@ -323,6 +335,20 @@ class Transformer(nn.Module):
         _register(self, param_spec(cfg), _dtype(cfg), self.device)
         self.blocks = nn.ModuleList(Block(cfg, kind, self.device)
                                     for kind in layer_kinds(cfg))
+        self.tp = None
+
+    def set_tensor_parallel(self, tp) -> None:
+        """Run as one rank's share of a 'model' group
+        (``models/tensor_parallel.TensorParallel``): the blocks take the
+        share's configuration, the embedding and head their vocabulary
+        blocks.  The caller gives the parameters their shares.  Dense
+        family only, without the logic FFN."""
+        if self.cfg.family != "dense" or self.cfg.logic_mlp:
+            raise ValueError(f"{self.cfg.name}: tensor parallelism splits "
+                             "the dense family's attention and SwiGLU FFN")
+        self.tp = tp
+        for blk in self.blocks:
+            blk.tp, blk.cfg = tp, tp.local_config(self.cfg)
 
     def embed_inputs(self, tokens=None, *, frames=None, vision=None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -347,7 +373,8 @@ class Transformer(nn.Module):
             # the lookup as F.embedding: the same rows, and a backward
             # that sums each row's gradient in a fixed order (indexing's
             # accumulating backward does not)
-            x = F.embedding(tokens, self.embed.to(cdt))
+            x = F.embedding(tokens, self.embed.to(cdt)) if self.tp is None \
+                else self.tp.embed(tokens, self.embed.to(cdt))
             if vlm:
                 vision = torch.as_tensor(vision, device=self.device)
                 x = torch.cat([vision.to(cdt), x], dim=1)
@@ -367,11 +394,16 @@ class Transformer(nn.Module):
                                          vision=vision)
         remat = _REMAT.get(self.cfg.remat) if (
             torch.is_grad_enabled() and ffn_inputs is None) else None
+        # seq_parallel: the residual stream between blocks is
+        # sequence-sharded over 'model' under a mesh
+        seq_ax = "model" if self.cfg.seq_parallel else None
+        x = constrain(x, "dp", seq_ax, None)
         for blk in self.blocks:
             if remat is None:
                 x = blk(x, positions, ffn_inputs)
             else:
                 x = remat(blk, x, positions)
+            x = constrain(x, "dp", seq_ax, None)
         x = rms_norm(x, self.final_norm)
         return self.lm_logits(x)
 
@@ -384,10 +416,15 @@ class Transformer(nn.Module):
             head = self.embed.T
         else:
             head = self.lm_head
-        logits = (x @ head.to(x.dtype)).float()
+        if self.tp is None:
+            logits = (x @ head.to(x.dtype)).float()
+        else:
+            logits = self.tp.gather_last(
+                (self.tp.enter(x) @ head.to(x.dtype)).float())
         if self.cfg.padded_vocab != self.cfg.vocab_size:
             logits[..., self.cfg.vocab_size:] = -1e30
-        return logits
+        spec = ["dp"] + [None] * (logits.ndim - 2) + ["model"]
+        return constrain(logits, *spec)
 
 
 # the reference's jax.checkpoint policies: "dots" saves the outputs of the

@@ -5,9 +5,11 @@ quantization, 256 elements a block, one float32 scale a block, rounded
 half to even (``torch.round`` as ``jnp.round``), so ``q`` equals the
 reference's bit for bit.  Error feedback carries the quantization
 residual into the next step [Seide et al. 2014; Karimireddy et al. 2019,
-arXiv:1901.09847].  On one device the trainer uses only the int8 round
-trip, which models the all-reduce's wire format; the error-feedback
-functions are the multi-device half (ROADMAP queue 1 item 3).
+arXiv:1901.09847].  The trainer, with a mesh or without, uses only the
+int8 round trip, which models the all-reduce's wire format: the
+reference's step keeps no error-feedback state, so neither does the
+port's, and no step calls ``ef_compress`` / ``ef_decompress_apply``
+(ported with the module, held against the reference by the tests).
 """
 from __future__ import annotations
 

@@ -21,7 +21,9 @@ Python loop, and a decode step writes each layer's slot of every cache
 tensor in place (the returned cache holds the same tensors with ``length
 + 1``).  Both run under ``torch.inference_mode()``: the model's forward
 records autograd where grad is enabled (training), and serving enters
-inference mode itself.
+inference mode itself.  The reference's sharding annotations stand at
+its places (``models/pspec_utils.constrain``); without an active mesh
+they do nothing.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ from repro_torch.models import mamba2, rglru
 from repro_torch.models.attention import KVCache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm
+from repro_torch.models.pspec_utils import constrain
 from repro_torch.models.transformer import (_LRU_KEYS, Block, Transformer,
                                             _cdtype, _rec_gate, _rec_mix,
                                             _ssm_mix, layer_kinds)
@@ -162,7 +165,7 @@ def decode_step(model: Transformer, tokens: torch.Tensor,
     advanced by one token)."""
     cfg = model.cfg
     tokens = torch.as_tensor(tokens, device=model.device)
-    x = model.embed.to(_cdtype(cfg))[tokens]
+    x = constrain(model.embed.to(_cdtype(cfg))[tokens], "dp", None, None)
     ia = iss = irec = 0
     for blk in model.blocks:
         if blk.kind == "ssm":
@@ -199,6 +202,7 @@ def prefill(model: Transformer, tokens: torch.Tensor, context: int, *,
     cfg = model.cfg
     _check_decoder(cfg)
     x, positions = model.embed_inputs(tokens, vision=vision)
+    x = constrain(x, "dp", None, None)
     cap = cache_capacity(cfg, context)
     ks, vs, sts, cvs, hs, rcs = [], [], [], [], [], []
     for blk in model.blocks:

@@ -1,7 +1,7 @@
 # CompiledEntry, ProgramCache, LogicRequest and _Chunk are copied from
 # src/repro/serve/logic_engine.py (only the imports and ProgramCache's
 # calibration record, named by device, differ); LogicEngine is its PyTorch
-# port on one CUDA device.
+# port on one or more devices.
 """Batched serving engine for compiled logic programs (``LogicEngine``).
 
 Three layers, as in the reference package:
@@ -22,8 +22,11 @@ Three layers, as in the reference package:
    the engine's device once, packs it there, runs the artifact's whole
    :class:`~repro_torch.core.scheduler.MegaProgram` (monolithic,
    partitioned or chained) in ONE launch of the CUDA mega kernel, and
-   unpacks.  The port serves on one device: ``n_devices`` is 1 and
-   ``sharded`` is False in :meth:`LogicEngine.stats`.
+   unpacks.  Across devices (the reference's ``shard_map`` over a 1-axis
+   mesh) the slab's rows split into one contiguous block a device, the
+   layout of ``batch_pspec``'s ``P("data", None)``: each block packs its
+   own words and runs the whole artifact in one launch on its device's own
+   stream, and the blocks come back in order — one launch a shard a wave.
 
 Requests are one-shot (combinational logic has no decode loop): a request
 completes in the first invocation wave it is admitted to.
@@ -723,11 +726,21 @@ class LogicEngine:
         loose ``n_unit``/``alloc``/``max_gates``/``optimize`` kwargs are
         the deprecated pre-spec convention.
       capacity: samples per invocation wave; rounded up to a multiple of
-        32 so the slab packs whole words.  Default ``32 * words_per_device``.
-      words_per_device: sizes the default capacity (W words).
+        ``32 * n_devices`` so every device's block packs whole words.
+        Default ``32 * words_per_device * n_devices``.
+      words_per_device: sizes the default capacity (W words per device).
       device: where waves run; ``"cuda"`` by default.  The constructor
         raises when no CUDA device is present — ``device="cpu"`` is the
         explicit opt-in to the plain PyTorch executors on the CPU.
+      devices: the devices to split each wave over (the counterpart of the
+        reference's ``mesh``), all of one type; an entry may repeat (two
+        shards on one card, or CPU shards standing in for devices).
+        Default: every visible CUDA device when more than one is visible
+        and the caller names no ``device`` (or ``shard=True``), else
+        ``[device]``.  The first is the engine's ``device``.
+      shard: force (True) / forbid (False) the split path; ``None`` (the
+        default) splits iff there is more than one device.  ``True`` on
+        one device runs the split path there.
       cache: optionally share a :class:`ProgramCache` across engines.
         Mutually exclusive with ``max_programs`` / ``store`` — bound and
         back a shared cache at its own construction.  A cache built for
@@ -745,7 +758,8 @@ class LogicEngine:
 
     def __init__(self, spec: CompileSpec | int | None = None, *,
                  capacity: int | None = None, words_per_device: int = 4,
-                 device=None, cache: ProgramCache | None = None,
+                 device=None, devices=None, shard: bool | None = None,
+                 cache: ProgramCache | None = None,
                  max_programs: int | None = None,
                  store: ArtifactStore | None = None,
                  max_retained: int | None = None, use_ref: bool = False,
@@ -754,7 +768,23 @@ class LogicEngine:
         self.spec = resolve_spec(spec, caller="LogicEngine", n_unit=n_unit,
                                  alloc=alloc, max_gates=max_gates,
                                  optimize=optimize)
-        self.device = resolve_device(device)
+        if device is not None and devices is not None:
+            raise ValueError("name the devices or one device, not both")
+        if devices is None:
+            n_cuda = torch.cuda.device_count() \
+                if torch.cuda.is_available() else 0
+            if device is None and shard is not False and n_cuda > 1:
+                devices = [torch.device("cuda", i) for i in range(n_cuda)]
+            else:
+                devices = [device]
+        self.devices = tuple(resolve_device(d) for d in devices)
+        if not self.devices:
+            raise ValueError("devices must name at least one device")
+        if len({d.type for d in self.devices}) > 1:
+            raise ValueError(f"devices must be of one type, got "
+                             f"{[str(d) for d in self.devices]}")
+        self.device = self.devices[0]
+        n_dev = len(self.devices)
         self.use_ref = use_ref
         if cache is not None and max_programs is not None:
             raise ValueError(
@@ -773,9 +803,13 @@ class LogicEngine:
         self.cache = cache if cache is not None else \
             ProgramCache(max_programs, store=store, device=self.device)
 
+        quantum = WORD_BITS * n_dev
         if capacity is None:
-            capacity = WORD_BITS * words_per_device
-        self.capacity = -(-capacity // WORD_BITS) * WORD_BITS
+            capacity = WORD_BITS * words_per_device * n_dev
+        self.capacity = -(-capacity // quantum) * quantum
+        # auto (None) splits only across more than one device; an explicit
+        # shard=True runs the split path even on one device
+        self.shard = shard is True or (shard is None and n_dev > 1)
 
         self.slots = SlotTable(self.capacity)
         self.max_retained = max_retained
@@ -788,8 +822,10 @@ class LogicEngine:
         self._retained: set[int] = set()
         self._next_uid = 0
         # execution-config key for per-engine runners on shared cache
-        # entries: engines share a runner only on the same device and path
-        self._exec_key = (self.capacity, str(self.device), self.use_ref)
+        # entries: engines share a runner only on the same devices, in the
+        # same order, and the same path
+        self._exec_key = (self.capacity, self.shard,
+                          tuple(str(d) for d in self.devices), self.use_ref)
         # telemetry
         self.invocations = 0
         self.samples_served = 0
@@ -832,17 +868,55 @@ class LogicEngine:
         leaving it.  The streams are uploaded once per entry and device
         (memoized by ``mega_arrays``); the only per-wave transfers are the
         ``(capacity, n_inputs)`` bool slab in and the outputs back.
+
+        Split (``shard``): the slab's rows in ``n_devices`` contiguous
+        blocks, block i on ``devices[i]``: each is moved there, packed, run
+        in one launch and unpacked on a stream of its own (after the
+        caller's stream on that device), its outputs copied back into
+        pinned host memory without waiting; then every shard's stream is
+        synchronized and the blocks are concatenated in order.  A shard
+        that fails raises.
         """
         mega = entry.artifact.megaprogram()
-        mega_arrays(mega, self.device)
+        for dev in dict.fromkeys(self.devices):
+            mega_arrays(mega, dev)
         device, use_ref = self.device, self.use_ref
 
-        def run(bits: np.ndarray) -> np.ndarray:
-            x = torch.from_numpy(bits).to(device)
-            ow = mega_forward_words(mega, pack_bits(x), use_ref=use_ref)
-            return unpack_bits(ow, bits.shape[0]).cpu().numpy()
+        if not self.shard:
+            def run(bits: np.ndarray) -> np.ndarray:
+                x = torch.from_numpy(bits).to(device)
+                ow = mega_forward_words(mega, pack_bits(x), use_ref=use_ref)
+                return unpack_bits(ow, bits.shape[0]).cpu().numpy()
 
-        return run
+            return run
+
+        devices = self.devices
+        rows = self.capacity // len(devices)
+        streams = [torch.cuda.Stream(device=d) if d.type == "cuda" else None
+                   for d in devices]
+
+        def run_sharded(bits: np.ndarray) -> np.ndarray:
+            outs = []
+            for i, (dev, stream) in enumerate(zip(devices, streams)):
+                if stream is not None:
+                    stream.wait_stream(current_stream(dev))
+                with device_scope(dev, stream):
+                    x = torch.from_numpy(bits[i * rows:(i + 1) * rows]).to(dev)
+                    ow = mega_forward_words(mega, pack_bits(x),
+                                            use_ref=use_ref)
+                    y = unpack_bits(ow, rows)
+                    if stream is None:
+                        outs.append(y)
+                        continue
+                    host = torch.empty(y.shape, dtype=torch.bool,
+                                       pin_memory=True)
+                    outs.append(host.copy_(y, non_blocking=True))
+            for stream in streams:
+                if stream is not None:
+                    stream.synchronize()
+            return torch.cat(outs).numpy()
+
+        return run_sharded
 
     # -- request lifecycle ---------------------------------------------------
 
@@ -1020,8 +1094,8 @@ class LogicEngine:
         inv = max(1, self.invocations)
         return {
             "capacity": self.capacity,
-            "n_devices": 1,
-            "sharded": False,
+            "n_devices": len(self.devices),
+            "sharded": self.shard,
             "invocations": self.invocations,
             "samples_served": self.samples_served,
             "mean_occupancy": self._occupancy_sum / inv,

@@ -1,4 +1,4 @@
-"""Fault-tolerant checkpointing: atomic, async, versioned.
+"""Fault-tolerant checkpointing: mesh-agnostic, atomic, async, versioned.
 
 Port of ``src/repro/train/checkpoint.py`` with its guarantees:
 
@@ -11,12 +11,21 @@ Port of ``src/repro/train/checkpoint.py`` with its guarantees:
     step; an error in the writer surfaces on the next ``wait``.
   * **Versioned**: keeps the newest ``keep`` checkpoints, deletes older.
   * The manifest records ``meta`` (the trainer's data step).
+  * **Mesh-agnostic**: leaves are stored whole.  A tree with DTensor
+    leaves (the sharded trainer's) is saved by every rank together: each
+    leaf is gathered whole (``full_tensor``) and rank 0 writes, then the
+    ranks meet at a barrier after a blocking save.  ``restore(...,
+    shardings=)`` puts each leaf back onto the given layout
+    (``models.pspec_utils.NamedPlacements``: a mesh and its placements),
+    each rank keeping its blocks, so a checkpoint written under one mesh
+    (or none) restores under another, bit for bit: the reference's
+    elastic path.
 
 A tree is nested dicts, lists, tuples and NamedTuples (the optimizer
 state) whose leaves are tensors or Python ints; a leaf's key is its path
 of dict keys, field names and indices joined by "/" (the parameters under
 their state-dict names, ``params/blocks.0.wq``).  Leaves are stored as
-full arrays in one ``shard_0.npz`` (one device, one shard).  npz cannot
+full arrays in one ``shard_0.npz`` (one writer, one shard).  npz cannot
 hold bfloat16 (or other 16-bit float types numpy lacks), so such a leaf
 keeps its own 16 bits as int16 and the manifest's ``dtypes`` names its
 type; restore reinterprets the bits.  That keeps minicpm-2b's bf16
@@ -36,6 +45,10 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from repro_torch.models.pspec_utils import NamedPlacements
 
 # torch dtypes numpy has no type for: stored as their raw 16 bits
 _RAW16 = {"bfloat16": torch.bfloat16}
@@ -61,6 +74,8 @@ def _flatten_with_paths(tree: Any) -> tuple[dict, dict]:
     copied to the host now."""
     flat, raw = {}, {}
     for key, leaf in _items(tree):
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()       # a collective: every rank
         if isinstance(leaf, torch.Tensor):
             # a copy, also of a CPU tensor: the trainer updates in place
             t = leaf.detach().to("cpu", copy=True)
@@ -116,10 +131,21 @@ class CheckpointManager:
 
     def save(self, step: int, tree: Any, meta: dict | None = None,
              blocking: bool = True) -> None:
+        """Snapshot ``tree`` now and write it (in the background unless
+        ``blocking``).  A tree with DTensor leaves is saved by every rank:
+        rank 0 writes, and a blocking save ends at a barrier."""
         self.wait()
+        collective = any(isinstance(leaf, DTensor) for _, leaf in
+                         _items(tree))
         flat, raw = _flatten_with_paths(tree)    # device->host snapshot NOW
+        writer = not collective or dist.get_rank() == 0
         if blocking:
-            self._write(step, flat, raw, meta or {})
+            if writer:
+                self._write(step, flat, raw, meta or {})
+            if collective:
+                dist.barrier()
+            return
+        if not writer:
             return
 
         def run():
@@ -157,11 +183,15 @@ class CheckpointManager:
         steps = self._steps()
         return steps[-1] if steps else None
 
-    def restore(self, like: Any, step: int | None = None
-                ) -> tuple[Any, dict]:
+    def restore(self, like: Any, step: int | None = None,
+                shardings: Any = None) -> tuple[Any, dict]:
         """Restore into the structure of ``like``: each tensor leaf comes
         back with the dtype and on the device of ``like``'s, each int leaf
-        as an int.  Returns (tree, the manifest's meta)."""
+        as an int.  ``shardings``, a tree like ``like``'s with a
+        :class:`~repro_torch.models.pspec_utils.NamedPlacements` (or None)
+        a leaf, puts each leaf onto that layout as a DTensor; a DTensor
+        leaf of ``like`` without one keeps its own layout.  Returns (tree,
+        the manifest's meta)."""
         self.wait()
         step = step if step is not None else self.latest_step
         if step is None:
@@ -170,6 +200,7 @@ class CheckpointManager:
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         raw = manifest.get("dtypes", {})
+        layouts = dict(_items(shardings)) if shardings is not None else {}
         with np.load(os.path.join(d, "shard_0.npz")) as data:
             def leaf_of(key, leaf):
                 arr = data[key]
@@ -183,7 +214,16 @@ class CheckpointManager:
                 t = torch.from_numpy(arr)
                 if key in raw:
                     t = t.view(_RAW16[raw[key]])
-                return t.to(device=leaf.device, dtype=leaf.dtype)
+                layout = layouts.get(key)
+                if layout is None and isinstance(leaf, DTensor):
+                    layout = NamedPlacements(leaf.device_mesh,
+                                             tuple(leaf.placements))
+                if layout is None:
+                    return t.to(device=leaf.device, dtype=leaf.dtype)
+                device = leaf.to_local().device if isinstance(
+                    leaf, DTensor) else leaf.device
+                return layout.distribute(t.to(device=device,
+                                              dtype=leaf.dtype))
 
             tree = _unflatten_like(like, leaf_of)
         return tree, manifest["meta"]

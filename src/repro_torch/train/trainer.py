@@ -1,4 +1,5 @@
-"""Trainer: the train step and the fault-tolerant loop, on one device.
+"""Trainer: the train step and the fault-tolerant loop, on one device or
+on a DeviceMesh.
 
 Port of ``src/repro/train/trainer.py``.  The step:
 
@@ -23,10 +24,15 @@ Only the dense family trains (:func:`check_trainable`): the other
 families serve, but their training has not been held against the
 reference (ROADMAP queue 1 item 7).
 
-No mesh: the reference's FSDP x TP shardings, donation, ``seq_parallel``
-and tensor parallelism have no meaning on one device and come with the
-sharded trainer (ROADMAP queue 1 item 3).  PyTorch runs eagerly, so there
-is no jit; the micro-batch scan is a Python loop.
+With a mesh (``Trainer(..., mesh=)``, a ``torch.distributed``
+``DeviceMesh`` with dims ('data', 'model') or ('pod', 'data', 'model'))
+the step is :func:`make_sharded_train_step`: the reference's FSDP x TP
+shardings as DTensor placements, each rank its rows of the batch, the
+gradient reduced over the batch axes (``train/parallel.py``); the loop
+runs under ``activation_sharding(mesh)``, and checkpoints gather each
+leaf whole (rank 0 writes) and restore onto the trainer's placements.
+Without a mesh nothing changes.  PyTorch runs eagerly, so there is no
+jit or donation; the micro-batch scan is a Python loop.
 """
 from __future__ import annotations
 
@@ -37,16 +43,20 @@ from dataclasses import dataclass, field
 from typing import Callable
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import Replicate
 
 from repro_torch.data.synthetic import TokenPipeline
 from repro_torch.kernels.logic_dsp.ops import resolve_device
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.pspec_utils import activation_sharding
 from repro_torch.models.transformer import Transformer, init_params, train_loss
 from repro_torch.optim import (AdamWState, adamw_init, adamw_update,
                                clip_by_global_norm, cosine_schedule,
                                resolve_moment_dtype, wsd_schedule)
 from repro_torch.optim.compression import compress_int8, decompress_int8
 from repro_torch.train.checkpoint import CheckpointManager
+from repro_torch.train.parallel import ShardedModel, batch_rows
 from repro_torch.train.resilience import PreemptionGuard, StragglerMonitor
 
 
@@ -110,6 +120,37 @@ def int8_round_trip(grads: dict) -> dict:
     return out
 
 
+def _grads_of(model, params, batch):
+    loss = train_loss(model, batch)
+    return loss.detach(), torch.autograd.grad(loss, list(params.values()))
+
+
+def compute_grads(model: Transformer, params: dict, batch: dict,
+                  grad_accum: int = 1) -> tuple[torch.Tensor, dict]:
+    """(loss, {name: gradient}) of ``batch`` with respect to ``params``:
+    with ``grad_accum`` k > 1 the batch's leading dim is split in order
+    into k micro-batches, each one's gradient divided by k and summed
+    into float32 accumulators, and the loss is the mean of theirs."""
+    if grad_accum <= 1:
+        loss, grads = _grads_of(model, params, batch)
+        return loss, dict(zip(params, grads))
+    k = grad_accum
+    micro = {kk: v.reshape(k, v.shape[0] // k, *v.shape[1:])
+             for kk, v in batch.items()}
+    dev = model.device
+    loss = torch.zeros((), dtype=torch.float32, device=dev)
+    acc = {n: torch.zeros(p.shape, dtype=torch.float32, device=dev)
+           for n, p in params.items()}
+    for i in range(k):
+        mb_loss, g = _grads_of(model, params,
+                               {kk: v[i] for kk, v in micro.items()})
+        for a, x in zip(acc.values(), g):
+            a.add_(x.float() / k)
+        del g
+        loss = loss + mb_loss / k
+    return loss, acc
+
+
 def make_train_step(cfg: ModelConfig, tc: TrainConfig) -> Callable:
     """Returns ``train_step(model, opt_state, batch) -> (model, opt_state,
     metrics)``.  The model's parameters are trained (their
@@ -119,34 +160,10 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig) -> Callable:
     lr_fn = make_lr_fn(tc)
     resolve_moment_dtype(cfg.moment_dtype)   # validate early
 
-    def grads_of(model, params, batch):
-        loss = train_loss(model, batch)
-        return loss.detach(), torch.autograd.grad(loss, list(params.values()))
-
-    def compute_grads(model, params, batch):
-        if tc.grad_accum <= 1:
-            loss, grads = grads_of(model, params, batch)
-            return loss, dict(zip(params, grads))
-        k = tc.grad_accum
-        micro = {kk: v.reshape(k, v.shape[0] // k, *v.shape[1:])
-                 for kk, v in batch.items()}
-        dev = model.device
-        loss = torch.zeros((), dtype=torch.float32, device=dev)
-        acc = {n: torch.zeros(p.shape, dtype=torch.float32, device=dev)
-               for n, p in params.items()}
-        for i in range(k):
-            mb_loss, g = grads_of(model, params,
-                                  {kk: v[i] for kk, v in micro.items()})
-            for a, x in zip(acc.values(), g):
-                a.add_(x.float() / k)
-            del g
-            loss = loss + mb_loss / k
-        return loss, acc
-
     def train_step(model: Transformer, opt_state: AdamWState, batch: dict):
         model.requires_grad_(True)
         params = dict(model.named_parameters())
-        loss, grads = compute_grads(model, params, batch)
+        loss, grads = compute_grads(model, params, batch, tc.grad_accum)
         if tc.compress_grads:
             # the int8 round trip models the wire format of the cross-pod
             # all-reduce; its quantization error is what convergence must
@@ -162,6 +179,43 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig) -> Callable:
     return train_step
 
 
+def make_sharded_train_step(cfg: ModelConfig, tc: TrainConfig,
+                            rows: tuple) -> Callable:
+    """``train_step(sharded, opt_state, batch) -> (sharded, opt_state,
+    metrics)`` for a :class:`~repro_torch.train.parallel.ShardedModel`:
+    the step of :func:`make_train_step` on this rank's rows (``batch``),
+    with the gradient reduced over the batch axes and the clip and AdamW
+    on each rank's blocks (``train/parallel.py``).  ``rows`` is
+    ``parallel.batch_rows``'s (slice, axes, n)."""
+    lr_fn = make_lr_fn(tc)
+    resolve_moment_dtype(cfg.moment_dtype)
+    _, axes, n = rows
+
+    def train_step(sm: ShardedModel, opt_state: AdamWState, batch: dict):
+        sm.gather()
+        params = dict(sm.module.named_parameters())
+        loss, grads = compute_grads(sm.module, params, batch, tc.grad_accum)
+        loss, grads = sm.reduce(loss, grads, axes, n)
+        if tc.compress_grads:
+            # the round trip over each whole leaf, as the reference's
+            # blocks run over its global (layer-stacked) gradient
+            whole = int8_round_trip({k: sm.whole(k, g)
+                                     for k, g in grads.items()})
+            replicated = (Replicate(),) * sm.mesh.ndim
+            grads = {k: sm.to_storage(k, g, replicated)
+                     for k, g in whole.items()}
+        else:
+            grads = {k: sm.to_storage(k, g) for k, g in grads.items()}
+        grads, gnorm = sm.clip(grads, tc.clip_norm)
+        new_opt = sm.adamw(grads, opt_state, lr=lr_fn,
+                           weight_decay=tc.weight_decay)
+        metrics = {"loss": loss.float(), "grad_norm": gnorm,
+                   "lr": lr_fn(opt_state.step + 1)}
+        return sm, new_opt, metrics
+
+    return train_step
+
+
 def check_trainable(cfg: ModelConfig) -> None:
     """The port trains the dense family only: no other family's training
     (its loss, gradients, the int8 round trip over its layer stacks) has
@@ -173,15 +227,29 @@ def check_trainable(cfg: ModelConfig) -> None:
 
 
 class Trainer:
-    """The training loop on one device (CUDA unless ``device="cpu"``).
-    After :meth:`run` the trained model and optimizer state stay on the
-    trainer as ``model`` and ``opt``."""
+    """The training loop on one device (CUDA unless ``device="cpu"``), or
+    on ``mesh``, a DeviceMesh over the whole process group whose ranks
+    each run this loop on their own ``device``.  After :meth:`run` the
+    trained model (a :class:`~repro_torch.train.parallel.ShardedModel`
+    under a mesh) and optimizer state stay on the trainer as ``model``
+    and ``opt``."""
 
     def __init__(self, cfg: ModelConfig, tc: TrainConfig, device,
-                 global_batch: int, seq_len: int):
+                 global_batch: int, seq_len: int, mesh=None):
         check_trainable(cfg)
         self.cfg, self.tc = cfg, tc
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.rows = None
+        if mesh is not None:
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"a {mesh.device_type} mesh cannot train "
+                                 f"on {self.device}")
+            if mesh.size() != dist.get_world_size():
+                raise ValueError(f"the mesh spans {mesh.size()} of the "
+                                 f"process group's {dist.get_world_size()} "
+                                 "ranks; it must span them all")
+            self.rows = batch_rows(mesh, global_batch)
         self.pipeline = TokenPipeline(cfg.vocab_size, global_batch, seq_len,
                                       seed=tc.seed)
         self.ckpt = CheckpointManager(tc.checkpoint_dir,
@@ -191,42 +259,72 @@ class Trainer:
         self.step = 0
         # honour cfg.moment_dtype (e.g. grok1's bf16 moments)
         self.moment_dtype = resolve_moment_dtype(cfg.moment_dtype)
-        self.train_step = make_train_step(cfg, tc)
-        self.model: Transformer | None = None
+        self.train_step = make_train_step(cfg, tc) if mesh is None else \
+            make_sharded_train_step(cfg, tc, self.rows)
+        self.model: Transformer | ShardedModel | None = None
         self.opt: AdamWState | None = None
 
     # ---- state ----
-    def init_state(self) -> tuple[Transformer, AdamWState]:
+    def init_state(self):
+        """(model, AdamW state): every rank draws the whole model from the
+        seed, as on one device; under a mesh each keeps its blocks."""
         model = init_params(self.cfg, torch.Generator(
             self.device).manual_seed(self.tc.seed), self.device)
         model.requires_grad_(True)
+        if self.mesh is not None:
+            sharded = ShardedModel(model, self.mesh)
+            return sharded, sharded.init_opt(self.moment_dtype)
         return model, adamw_init(dict(model.named_parameters()),
                                  self.moment_dtype)
 
-    def state(self, model: Transformer, opt: AdamWState) -> dict:
-        """The tree a checkpoint holds."""
-        return {"params": model.state_dict(), "opt": opt}
+    def state(self, model, opt: AdamWState) -> dict:
+        """The tree a checkpoint holds (the same keys with a mesh or
+        without, so either restores the other's)."""
+        params = model.params if self.mesh is not None else \
+            model.state_dict()
+        return {"params": params, "opt": opt}
 
     def maybe_resume(self, model, opt):
         if self.ckpt.latest_step is None:
             return model, opt
-        restored, meta = self.ckpt.restore(self.state(model, opt))
-        model.load_state_dict(restored["params"])
+        restored, meta = self.ckpt.restore(
+            self.state(model, opt),
+            shardings=None if self.mesh is None else model.layouts())
+        if self.mesh is not None:
+            model.load(restored["params"])
+        else:
+            model.load_state_dict(restored["params"])
         self.step = int(meta.get("data_step", self.ckpt.latest_step))
         print(f"[trainer] resumed from step {self.step}")
         return model, restored["opt"]
 
     def batch(self, step: int) -> dict:
-        return {k: torch.from_numpy(v).to(self.device)
+        """Step ``step``'s batch, this rank's rows under a mesh."""
+        rows = slice(None) if self.rows is None else self.rows[0]
+        return {k: torch.from_numpy(v[rows]).to(self.device)
                 for k, v in self.pipeline.batch(step).items()}
+
+    def _should_stop(self) -> bool:
+        """The preemption flag, agreed by every rank under a mesh (one
+        rank leaving the loop alone would hang the others' collectives)."""
+        if self.mesh is None or self.mesh.size() == 1:
+            return self.guard.should_stop
+        flag = torch.tensor(float(self.guard.should_stop),
+                            device=self.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())
 
     # ---- loop ----
     def run(self, steps: int, log_every: int = 10) -> list[dict]:
+        with activation_sharding(self.mesh):
+            return self._run(steps, log_every)
+
+    def _run(self, steps: int, log_every: int) -> list[dict]:
         model, opt = self.init_state()
         model, opt = self.maybe_resume(model, opt)
         history = []
         for _ in range(steps):
-            if self.guard.should_stop:
+            if self._should_stop():
                 print("[trainer] preemption: checkpoint + stop")
                 break
             t0 = time.monotonic()

@@ -51,6 +51,11 @@ COPIED_DEFS = {
     "flow/report": ("FlowConfig", "EndToEndReport"),
     "serve/logic_engine": ("_resolve_cache_spec", "CompiledEntry",
                            "LogicRequest", "_Chunk"),
+    "train/sharding": ("_RULES", "_MOE_3D", "_axis", "_shard_if",
+                       "leaf_pspec", "param_pspecs", "moment_pspecs",
+                       "dp_axes", "batch_pspec", "cache_pspecs"),
+    "models/pspec_utils": ("activation_sharding", "active_mesh", "dp_axes",
+                           "_resolve"),
 }
 # copies that differ from the reference in these lines alone (reference
 # text -> port text), each definition as a whole; in a module of COPIED

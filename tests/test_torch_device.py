@@ -36,6 +36,7 @@ from repro_torch.serve import (FrontDoor, LogicEngine, ProgramCache,
 from repro_torch.configs import get_config
 from repro_torch.examples import quickstart
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch.mesh import backend_for
 from repro_torch.models import logic_mlp
 from repro_torch.models.transformer import Transformer, init_params
 
@@ -92,7 +93,8 @@ def _door_round(g, x, **kw):
                                    "engine", "program_arrays",
                                    "phased_infer_bits", "measure_phases",
                                    "frontdoor", "calibration_name",
-                                   "store_cache"])
+                                   "store_cache", "sharded_engine",
+                                   "mesh_backend"])
 def test_entry_points_raise_without_cuda_unless_cpu(no_cuda, entry,
                                                     tmp_path):
     g, p = _prog()
@@ -112,12 +114,16 @@ def test_entry_points_raise_without_cuda_unless_cpu(no_cuda, entry,
         "calibration_name": lambda **kw: ops.calibration_name(**kw),
         "store_cache": lambda **kw: ProgramCache(
             store=ArtifactStore(tmp_path), **kw),
+        "sharded_engine": lambda **kw: LogicEngine(
+            CompileSpec(n_unit=8), capacity=64, shard=True,
+            **kw).serve(g, x),
+        "mesh_backend": lambda **kw: backend_for(**kw),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
     out = calls[entry](device="cpu")
     if entry in ("logic_infer_bits", "mega_infer_bits", "engine",
-                 "phased_infer_bits", "frontdoor"):
+                 "phased_infer_bits", "frontdoor", "sharded_engine"):
         np.testing.assert_array_equal(out, g.evaluate(x))
 
 
@@ -675,3 +681,56 @@ def test_family_on_card_matches_cpu(cuda, arch):
                                        rtol=2e-3, atol=2e-3)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@pytest.mark.cuda
+def test_sharded_engine_on_card(cuda):
+    """The split path over two shards of one card: exact, one K2 launch a
+    shard a wave, all on the shared variant."""
+    g, _ = _prog(11, n_gates=300)
+    eng = LogicEngine(CompileSpec(n_unit=16), capacity=256,
+                      devices=[cuda, cuda])
+    x = _bits(12, 700, 8)
+    k2 = _k.launch_count("mega", "shared")
+    np.testing.assert_array_equal(eng.serve(g, x), g.evaluate(x))
+    assert eng.stats()["n_devices"] == 2 and eng.stats()["sharded"]
+    assert _k.launch_count("mega", "shared") - k2 == 2 * eng.invocations
+
+
+@pytest.mark.cuda
+def test_sharded_trainer_on_card_one_rank(cuda, tmp_path):
+    """A one-rank NCCL group's (1, 1) mesh: the sharded step equals the
+    one-device step (the same operations in the same order)."""
+    import signal
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import TrainConfig, Trainer
+    saved = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        cfg = get_config("qwen3-8b", smoke=True)
+        tc = TrainConfig(lr=1e-3, warmup_steps=1, total_steps=10,
+                         grad_accum=2, checkpoint_dir=str(tmp_path / "ck"))
+        got = {}
+        for name, mesh in (("one", None), ("mesh", make_host_mesh())):
+            t = Trainer(cfg, tc, cuda, 4, 32, mesh=mesh)
+            model, opt = t.init_state()
+            model, _, m = t.train_step(model, opt, t.batch(0))
+            params = model.params if mesh is not None else dict(
+                model.named_parameters())
+            got[name] = ({k: float(v) for k, v in m.items()},
+                         {k: (v.to_local() if mesh is not None else v)
+                          .detach().cpu() for k, v in params.items()})
+        for k in ("loss", "grad_norm"):
+            assert got["mesh"][0][k] == pytest.approx(got["one"][0][k],
+                                                      rel=1e-6)
+        for k, v in got["one"][1].items():
+            torch.testing.assert_close(got["mesh"][1][k], v, rtol=0,
+                                       atol=1e-6)
+    finally:
+        dist.destroy_process_group()
+        for s, h in saved.items():
+            signal.signal(s, h)

@@ -16,7 +16,9 @@ FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
 # front door, its traffic, the tools, the serving examples, the Verilog
 # front end and the quickstart, the LM serving path, and the LM training
 # path: optimizer, trainer, checkpoints, launcher and examples, and the
-# MoE, SSM and RG-LRU layers of the other model families)
+# MoE, SSM and RG-LRU layers of the other model families, and the
+# sharding rules, meshes, activation constraints, tensor parallelism and
+# sharded step of the sharded trainer)
 EXPECTED = ("repro_torch.kernels.native", "repro_torch.kernels.xnor_gemm.ops",
             "repro_torch.kernels.xnor_gemm.kernel",
             "repro_torch.kernels.xnor_gemm.ref", "repro_torch.data.synthetic",
@@ -45,7 +47,10 @@ EXPECTED = ("repro_torch.kernels.native", "repro_torch.kernels.xnor_gemm.ops",
             "repro_torch.convert", "repro_torch.examples.train_lm",
             "repro_torch.examples.logic_mlp_swap",
             "repro_torch.models.moe", "repro_torch.models.mamba2",
-            "repro_torch.models.rglru")
+            "repro_torch.models.rglru", "repro_torch.train.sharding",
+            "repro_torch.launch.mesh", "repro_torch.models.pspec_utils",
+            "repro_torch.models.tensor_parallel",
+            "repro_torch.train.parallel")
 
 
 def test_package_imports_without_jax_or_reference():

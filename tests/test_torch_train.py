@@ -299,7 +299,30 @@ def test_launch_train_uses_the_arch_schedule_and_refuses_model_parallel(
     trainer, _ = launch_train.build(
         ["--arch", "qwen3-8b", "--smoke", "--device", "cpu",
          "--checkpoint-dir", str(tmp_path)])
-    assert trainer.tc.schedule == "cosine"
+    assert trainer.tc.schedule == "cosine" and trainer.mesh is None
+    # one process has no mesh of 2 ranks
     with pytest.raises(SystemExit):
         launch_train.build(["--arch", "minicpm-2b", "--smoke",
                             "--model-parallel", "2", "--device", "cpu"])
+
+
+def test_launch_train_takes_the_host_mesh_under_a_process_group(
+        tmp_path, monkeypatch):
+    """With torchrun's environment (here a group of one rank) the
+    launcher trains on the host mesh, and refuses a --model-parallel that
+    does not divide the group."""
+    from repro_torch.launch.mesh import destroy, free_port
+    for k, v in dict(RANK="0", WORLD_SIZE="1", MASTER_ADDR="localhost",
+                     MASTER_PORT=str(free_port())).items():
+        monkeypatch.setenv(k, v)
+    try:
+        trainer, _ = launch_train.build(
+            ["--arch", "qwen3-8b", "--smoke", "--device", "cpu",
+             "--model-parallel", "1", "--checkpoint-dir", str(tmp_path)])
+        assert trainer.mesh.mesh_dim_names == ("data", "model")
+        assert tuple(trainer.mesh.shape) == (1, 1)
+        with pytest.raises(SystemExit):
+            launch_train.build(["--arch", "qwen3-8b", "--smoke", "--device",
+                                "cpu", "--model-parallel", "2"])
+    finally:
+        destroy()
