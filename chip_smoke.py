@@ -88,13 +88,22 @@ through ``prefill(vision=)`` / ``decode_step``; hubert's encoder
 forward), every request finished with in-vocabulary ids.  They launch no
 ported kernel.
 
+Last the same families trained at full width in bf16
+(``train_families``, one line each): mamba2-370m and recurrentgemma-2b
+through ``launch/train.py``'s Trainer with their checkpoints,
+mixtral-8x7b (2 of 32 layers), internvl2-76b (2 of 80 layers, 256 stub
+patch embeddings + 256 tokens) and hubert-xlarge (512 frames with
+labels) through ``make_train_step``; each with the loss falling on a
+fixed batch and a float32 step card against CPU, mixtral's also on a
+one-rank (1, 1) mesh.
+
 Output, one JSON object per line: ``env``, ``build``, ``parity``,
 ``main_path``, ``timing``, ``engine``, ``sharded_serving``, ``xnor``,
 ``flow``, ``calibrate``, ``frontdoor``, ``warm_start``, ``quickstart``,
 ``logic_ffn``, ``lm``, ``train_full``, ``train_parity``,
-``sharded_train``, ``logic_swap_train`` and ``families``
-(one line per model and a last one with the phase's kernel launches);
-then the
+``sharded_train``, ``logic_swap_train``, ``families`` and
+``train_families`` (one line per model and a last one with the phase's
+kernel launches); then the
 card's name and power limit as nvidia-smi prints them; then a ``kernels``
 line (per kernel: its launches on the main paths, its largest difference
 from the plain version, its device time per call, the plain version's
@@ -107,6 +116,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -244,6 +254,40 @@ FAMILIES = {
                           tokens=16, decode=4),
     "hubert-xlarge": dict(serve=48, self_check=None, vs_cpu=48),
 }
+# the families' training at full width (train_families): bf16 with each
+# config's moment dtype and remat, TRAIN_FAMILY's rows x positions a
+# step, no accumulation.  Per model: "layers", the depth (None: whole; a
+# cut only where 80 GB forces it, listed under "reduced"); "route",
+# launch/train.py's build (its Trainer and final checkpoint) or
+# make_train_step on explicit batches (the vlm's "vision" stub patch
+# embeddings before its tokens, the audio's frames with labels: the
+# Trainer's token pipeline makes neither; mixtral's, to keep the phase
+# near 300 s: through the launcher its 31.6 GB checkpoint took 45.7 s on
+# an H100 80GB HBM3 at 700 W);
+# "parity", the depth of the float32 step held card against CPU (the
+# smallest that keeps the family's structure: recurrentgemma one (rec,
+# rec, attn) group and the 2-layer tail); "mesh", that step also on a
+# one-rank NCCL (1, 1) mesh
+TRAIN_FAMILIES = {
+    "mixtral-8x7b": dict(layers=2, route="step", parity=1, mesh=True),
+    "mamba2-370m": dict(layers=None, route="launcher", parity=2),
+    "recurrentgemma-2b": dict(layers=None, route="launcher", parity=5),
+    "internvl2-76b": dict(layers=2, route="step", parity=1, vision=256),
+    "hubert-xlarge": dict(layers=None, route="step", parity=2),
+}
+TRAIN_FAMILY = dict(steps=4, global_batch=8, seq_len=512)
+# the fixed-batch descent: a batch the run has not seen (batch 0, seen in
+# the first step, was memorized by that one step: internvl2's loss on it
+# started at 1e-7), at lr 1e-4, about one bf16 step of a weight at the
+# init's scale (0.02): at 3e-4 Adam's sign-like first steps overshot on
+# hubert-xlarge's 48-layer encoder (6.34 -> 6.44 -> 6.23 -> 6.66 on an
+# H100 80GB HBM3 at 700 W)
+TRAIN_FAMILY_DESCENT = dict(lr=1e-4, batch=1000)
+# the float32 step (TF32 off) at a constant lr of 1e-4: Adam's first step
+# moves an element by at most lr (plus its decay), so a parameter can
+# differ by 1e-4 only where its gradient's sign does
+TRAIN_FAMILY_PARITY = dict(global_batch=2, seq_len=64, lr=1e-4, vision=32)
+TRAIN_FAMILY_PARITY_TOL = 1e-4       # loss, grad_norm (rel); params (abs)
 FAMILY_PARITY_TOL = 2e-3             # prefill + decode against forward
 # card against CPU in float32 (TF32 off): the same 1e-4 that holds the
 # packages together on the CPU (float32 sums of up to 28,672 terms in
@@ -747,6 +791,7 @@ def run(args, torch) -> None:
     sharded_train_phase(args, torch, dev, smi, full)
     lswap = logic_swap_train_phase(args, torch, dev, smi, cuda_ms)
     families_phase(args, torch, dev, smi)
+    train_families_phase(args, torch, dev, smi)
     max_err["logic"] = max(max_err["logic"], quick["max_abs_err"],
                            lffn["max_abs_err"], lswap["max_abs_err"])
     paths = {"fc1": launches, "xnor": xnor["launches"],
@@ -2019,7 +2064,7 @@ def moe_routing(torch, model, toks) -> list:
         model(toks, ins)
     out = []
     for blk, h in zip(model.blocks, ins):
-        _, idx, _, a_slot, cap = moe.route(blk.params(), h, model.cfg)
+        _, idx, _, a_slot, _, cap = moe.route(blk.params(), h, model.cfg)
         out.append((idx, a_slot, cap))
     return out
 
@@ -2754,14 +2799,10 @@ def sharded_train_phase(args, torch, dev, smi, full: dict) -> dict:
     import shutil
 
     import numpy as np
-    import torch.distributed as dist
 
     from repro_torch.configs import get_config
     from repro_torch.launch import train as launch_train
-    from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models.pspec_utils import mesh_axes, placements
     from repro_torch.train import TrainConfig, Trainer
-    from repro_torch.train import sharding as shd
 
     tp = TRAIN_PARITY
     cfg = get_config(TRAIN_ARCH).with_(
@@ -2775,101 +2816,75 @@ def sharded_train_phase(args, torch, dev, smi, full: dict) -> dict:
            "world_size": 1, "mesh": {"data": 1, "model": 1},
            "disk": need_disk(scratch_dir(), big.param_count() * 10,
                              "sharded_train")}
-    store = Path(tempfile.mkdtemp(prefix="sharded_train.",
-                                  dir=scratch_dir())) / "store"
     ckdir = tempfile.mkdtemp(prefix="sharded_train.", dir=scratch_dir())
     prev_tf32 = torch.backends.cuda.matmul.allow_tf32
     handlers = saved_signal_handlers()
-    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
-                            rank=0, world_size=1, device_id=dev)
     try:
-        mesh = make_host_mesh(model=1, device=dev)
-        # (a) the (1, 1) mesh's step against the one-device step
-        torch.backends.cuda.matmul.allow_tf32 = False
-        tc = TrainConfig(lr=tp["lr"], warmup_steps=1, total_steps=10,
-                         schedule="wsd", grad_accum=tp["grad_accum"],
-                         seed=args.seed, checkpoint_dir=ckdir,
-                         checkpoint_every=100)
-        res, params = {}, {}
-        for name, m in (("one_device", None), ("mesh", mesh)):
-            t = Trainer(cfg, tc, dev, tp["global_batch"], tp["seq_len"],
-                        mesh=m)
+        with one_rank_group(torch, dev) as mesh:
+            # (a) the (1, 1) mesh's step against the one-device step
+            torch.backends.cuda.matmul.allow_tf32 = False
+            tc = TrainConfig(lr=tp["lr"], warmup_steps=1, total_steps=10,
+                             schedule="wsd", grad_accum=tp["grad_accum"],
+                             seed=args.seed, checkpoint_dir=ckdir,
+                             checkpoint_every=100)
+            t = Trainer(cfg, tc, dev, tp["global_batch"], tp["seq_len"])
             model, opt = t.init_state()
+            batch = t.batch(0)
             t0 = time.perf_counter()
-            model, opt, metrics = t.train_step(model, opt, t.batch(0))
+            model, opt, metrics = t.train_step(model, opt, batch)
             torch.cuda.synchronize()
-            res[name] = {k: float(v) for k, v in metrics.items()}
-            res[name]["seconds"] = time.perf_counter() - t0
-            if m is None:
-                params[name] = {n: p.detach() for n, p in
-                                model.named_parameters()}
-            else:
-                params[name] = {n: d.to_local() for n, d in
-                                model.params.items()}
-                want = shd.flat_param_pspecs(cfg, mesh_axes(mesh))
-                want_m = shd.flat_moment_pspecs(cfg, mesh_axes(mesh))
-                wrong = [n for n, d in model.params.items()
-                         if tuple(d.placements) != placements(mesh, want[n])
-                         or tuple(opt.mu[n].placements) != placements(
-                             mesh, want_m[n])]
-                out["placements"] = {
-                    "leaves": len(model.params), "wrong": wrong[:5],
-                    "blocks.0.wq": [str(p) for p in
-                                    model.params["blocks.0.wq"].placements],
-                    "embed": [str(p) for p in
-                              model.params["embed"].placements]}
-            del model, opt, t
-        diff = max(float((params["mesh"][n] - p).abs().max())
-                   for n, p in params["one_device"].items())
-        same = all(torch.equal(params["mesh"][n], p)
-                   for n, p in params["one_device"].items())
-        out["step"] = {**res, "params_max_abs_diff": diff,
-                       "bit_equal": same, "rtol": SHARDED_STEP_RTOL,
-                       "n_layers": cfg.n_layers, "dtype": "float32"}
-        del params
-        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
-        torch.cuda.empty_cache()
+            one = {k: float(v) for k, v in metrics.items()}
+            one["seconds"] = time.perf_counter() - t0
+            del opt, t
+            ms = mesh_step(torch, dev, mesh, cfg, tc, batch, model)
+            del model
+            out["placements"] = ms["placements"]
+            out["step"] = {"one_device": one, "mesh": ms["step"],
+                           "params_max_abs_diff": ms["params_max_abs_diff"],
+                           "bit_equal": ms["bit_equal"],
+                           "rtol": SHARDED_STEP_RTOL,
+                           "n_layers": cfg.n_layers, "dtype": "float32"}
+            torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+            torch.cuda.empty_cache()
 
-        # (b) full size through the launcher, on the group's mesh
-        trainer, _ = launch_train.build([
-            "--arch", TRAIN_ARCH, "--steps", str(st["steps"]),
-            "--global-batch", str(st["global_batch"]),
-            "--seq-len", str(st["seq_len"]), "--checkpoint-dir", ckdir,
-            "--checkpoint-every", str(10 * st["steps"]),
-            "--device", str(dev)])
-        on_mesh = trainer.mesh is not None and \
-            tuple(trainer.mesh.shape) == (1, 1)
-        saves = timed_saves(trainer)
-        torch.cuda.reset_peak_memory_stats(dev)
-        t0 = time.perf_counter()
-        hist = trainer.run(st["steps"], log_every=0)
-        run_s = time.perf_counter() - t0
-        step_s = np.asarray([h["seconds"] for h in hist[1:]])
-        p50 = float(np.median(step_s))
-        ft = full["train"]
-        out["train"] = {
-            "model": big.name, "params": big.param_count(), **st,
-            "on_mesh": on_mesh, "loss": [h["loss"] for h in hist],
-            "grad_norm": [h["grad_norm"] for h in hist],
-            "first_step_s": hist[0]["seconds"], "step_s_p50": p50,
-            "tokens_per_s": tokens / p50, "run_s": run_s,
-            "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
-            "checkpoint": {"bytes": dir_bytes(ckdir), "saves": [
-                {"seconds": s, "step": k} for s, k in saves]},
-            "train_full": {
-                "step_s_p50": ft["step_s_p50"],
-                "tokens_per_s": ft["tokens_per_s"],
-                "max_memory_allocated": ft["max_memory_allocated"],
-                "global_batch": full["global_batch"],
-                "seq_len": full["seq_len"],
-                "grad_accum": full["grad_accum"]}}
-        del trainer
+            # (b) full size through the launcher, on the group's mesh
+            trainer, _ = launch_train.build([
+                "--arch", TRAIN_ARCH, "--steps", str(st["steps"]),
+                "--global-batch", str(st["global_batch"]),
+                "--seq-len", str(st["seq_len"]), "--checkpoint-dir", ckdir,
+                "--checkpoint-every", str(10 * st["steps"]),
+                "--device", str(dev)])
+            on_mesh = trainer.mesh is not None and \
+                tuple(trainer.mesh.shape) == (1, 1)
+            saves = timed_saves(trainer)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            hist = trainer.run(st["steps"], log_every=0)
+            run_s = time.perf_counter() - t0
+            step_s = np.asarray([h["seconds"] for h in hist[1:]])
+            p50 = float(np.median(step_s))
+            ft = full["train"]
+            out["train"] = {
+                "model": big.name, "params": big.param_count(), **st,
+                "on_mesh": on_mesh, "loss": [h["loss"] for h in hist],
+                "grad_norm": [h["grad_norm"] for h in hist],
+                "first_step_s": hist[0]["seconds"], "step_s_p50": p50,
+                "tokens_per_s": tokens / p50, "run_s": run_s,
+                "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+                "checkpoint": {"bytes": dir_bytes(ckdir), "saves": [
+                    {"seconds": s, "step": k} for s, k in saves]},
+                "train_full": {
+                    "step_s_p50": ft["step_s_p50"],
+                    "tokens_per_s": ft["tokens_per_s"],
+                    "max_memory_allocated": ft["max_memory_allocated"],
+                    "global_batch": full["global_batch"],
+                    "seq_len": full["seq_len"],
+                    "grad_accum": full["grad_accum"]}}
+            del trainer
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev_tf32
         restore_signal_handlers(handlers)
-        dist.destroy_process_group()
         shutil.rmtree(ckdir, ignore_errors=True)
-        shutil.rmtree(store.parent, ignore_errors=True)
     torch.cuda.empty_cache()
     emit(out)
     s = out["step"]
@@ -2893,6 +2908,353 @@ def sharded_train_phase(args, torch, dev, smi, full: dict) -> dict:
           tr["checkpoint"]["saves"][-1]["step"] == st["steps"],
           "sharded_train: the final checkpoint was written")
     return out
+
+
+def train_families_phase(args, torch, dev, smi) -> None:
+    """The MoE, SSM, hybrid, VLM and audio families trained at full width
+    on the card, one line each (:func:`train_family_case`), one model at
+    a time and freed between them; a last line with the phase's K1/K2/K3
+    launches, which must be 0: the families' dispatch and scans are
+    plain PyTorch, as they are XLA in the reference."""
+    from repro_torch.kernels.logic_dsp import kernel as K
+
+    K.reset_launch_counts()                     # the phase's path
+    t0 = time.perf_counter()
+    for arch, plan in TRAIN_FAMILIES.items():
+        train_family_case(args, torch, dev, smi, arch, plan)
+    launches = {k: K.launch_count(k) for k in ("logic", "mega", "xnor")}
+    emit({"phase": "train_families", "models": list(TRAIN_FAMILIES),
+          "launches": launches, "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi})
+    check(not any(launches.values()),
+          f"train_families: no ported kernel on the path: {launches}")
+
+
+def allocated_params(cfg) -> int:
+    """The elements the model allocates (its padded vocabulary's rows
+    included)."""
+    from repro_torch.train import sharding as shd
+    tree = shd.param_shapes(cfg, "layers")
+    return sum(v.numel() for k, v in tree.items() if k != "layers") + sum(
+        v.numel() for layer in tree["layers"] for v in layer.values())
+
+
+def active_params(cfg, n: int) -> int:
+    """The parameters a token passes through: for MoE the router and k of
+    the E experts of each layer."""
+    if cfg.family != "moe":
+        return n
+    idle = cfg.n_experts - cfg.experts_per_token
+    return n - cfg.n_layers * 3 * idle * cfg.d_model * cfg.d_ff
+
+
+def train_batch(torch, cfg, rows: int, positions: int, vision: int,
+                seed: int, step: int, dev) -> dict:
+    """Step ``step``'s seeded batch of the family's training inputs on
+    ``dev``, ``rows`` x ``positions``: tokens (``TokenPipeline``); for vlm
+    ``vision`` stub patch embeddings before the tokens; for audio frames
+    and their labels."""
+    from repro_torch.data import TokenPipeline
+    g = torch.Generator(dev).manual_seed(seed * 1000 + step)
+    if cfg.family == "audio":
+        return {"frames": torch.randn((rows, positions, cfg.frontend_dim),
+                                      generator=g, device=dev),
+                "labels": torch.randint(0, cfg.vocab_size, (rows, positions),
+                                        generator=g, device=dev)}
+    n_text = positions - (vision if cfg.family == "vlm" else 0)
+    out = {"tokens": torch.from_numpy(TokenPipeline(
+        cfg.vocab_size, rows, n_text, seed=seed).batch(step)["tokens"]
+    ).to(dev)}
+    if cfg.family == "vlm":
+        out["vision"] = torch.randn((rows, vision, cfg.d_model),
+                                    generator=g, device=dev)
+    return out
+
+
+def train_family_case(args, torch, dev, smi, arch, plan) -> dict:
+    """One family trained at full width in bf16 (the config's moment
+    dtype and remat), random weights from ``--seed``: (a)
+    ``TRAIN_FAMILY["steps"]`` steps of 8 x 512 positions through
+    ``launch/train.py``'s Trainer with its final checkpoint (written
+    under build/ after a free-disk check, removed after) or through
+    ``make_train_step`` on explicit batches, then one step profiled;
+    (b) on one fixed batch the run has not seen, from fresh AdamW state
+    (``TRAIN_FAMILY_DESCENT``), the loss after 4 steps below the first;
+    (c) a float32 step (TF32 off) at ``plan["parity"]`` layers and full
+    width on 2 x 64 positions, card against CPU within
+    ``TRAIN_FAMILY_PARITY_TOL`` on the loss, the grad norm and every
+    parameter; (d) for mixtral that step on a one-rank NCCL (1, 1) mesh
+    against one device within ``SHARDED_STEP_RTOL``.  Gated: every loss
+    and grad norm finite, (b), (c), (d), the checkpoint written.
+    Reported: parameters and active parameters, step p50/p90, tokens/s,
+    MFU (6 N_active tokens over the step at the bf16 peak), peak memory,
+    the profiled step's launches and the device's idle share, and for
+    MoE each layer's dropped assignments on the last batch."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.transformer import Transformer, init_params
+    from repro_torch.optim import adamw_init, resolve_moment_dtype
+    from repro_torch.train import TrainConfig, make_train_step
+
+    whole = get_config(arch)
+    cfg = whole.with_(n_layers=plan["layers"] or whole.n_layers)
+    tf = TRAIN_FAMILY
+    rows, positions = tf["global_batch"], tf["seq_len"]
+    vision = plan.get("vision", 0)
+    n = allocated_params(cfg)
+    n_active = active_params(cfg, n)
+    tokens = rows * positions
+    moment_bytes = resolve_moment_dtype(cfg.moment_dtype).itemsize
+    t_case = time.perf_counter()
+    out = {"phase": "train_families", "model": cfg.name,
+           "family": cfg.family, "nvidia_smi": smi, "route": (
+               "launch.train.build" if plan["route"] == "launcher"
+               else "make_train_step"),
+           "config": {k: getattr(cfg, k) for k in (
+               "n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
+               "vocab_size", "n_experts", "experts_per_token",
+               "capacity_factor", "param_dtype", "moment_dtype", "remat")},
+           "params": n, "active_params": n_active, **tf,
+           "positions_per_step": tokens, "vision_positions": vision,
+           "reduced": {}}
+    if cfg.n_layers < whole.n_layers:
+        out["reduced"] = {"n_layers": cfg.n_layers, "of": whole.n_layers,
+                          "params_whole": allocated_params(whole)}
+    def batch(step):
+        return train_batch(torch, cfg, rows, positions, vision, args.seed,
+                           step, dev)
+
+    handlers = saved_signal_handlers()
+    ckdir = None
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        if plan["route"] == "launcher":
+            ckpt_need = n * (2 + 2 * moment_bytes)
+            out["disk"] = need_disk(scratch_dir(), ckpt_need, cfg.name)
+            ckdir = tempfile.mkdtemp(prefix="train_families.",
+                                     dir=scratch_dir())
+            trainer, _ = launch_train.build([
+                "--arch", arch, "--steps", str(tf["steps"]),
+                "--global-batch", str(rows), "--seq-len", str(positions),
+                "--checkpoint-dir", ckdir,
+                "--checkpoint-every", str(10 * tf["steps"]),
+                "--device", str(dev)])
+            check(trainer.cfg == cfg, f"{cfg.name}: the launcher's config")
+            saves = timed_saves(trainer)
+            hist = trainer.run(tf["steps"], log_every=0)
+            model, opt, step = trainer.model, trainer.opt, trainer.train_step
+            last = trainer.batch(trainer.step)
+            out["checkpoint"] = {"bytes": dir_bytes(ckdir), "saves": [
+                {"seconds": t, "step": st} for t, st in saves],
+                "expected_bytes": ckpt_need}
+            shutil.rmtree(ckdir, ignore_errors=True)
+            del trainer
+        else:
+            model = init_params(cfg, torch.Generator(dev).manual_seed(
+                args.seed), dev)
+            step = make_train_step(cfg, TrainConfig(
+                lr=3e-4, warmup_steps=1, total_steps=tf["steps"]))
+            opt = adamw_init(dict(model.named_parameters()),
+                             resolve_moment_dtype(cfg.moment_dtype))
+            hist = []
+            for i in range(tf["steps"]):
+                b = batch(i)
+                t1 = time.perf_counter()
+                model, opt, m = step(model, opt, b)
+                m = {k: float(v) for k, v in m.items()}
+                hist.append({**m, "seconds": time.perf_counter() - t1})
+            last = batch(tf["steps"])
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        step_s = np.asarray([h["seconds"] for h in hist[1:]])
+        p50 = float(np.median(step_s))
+        out["train"] = {
+            "lr": [h["lr"] for h in hist], "loss": [h["loss"] for h in hist],
+            "grad_norm": [h["grad_norm"] for h in hist],
+            "first_step_s": hist[0]["seconds"], "step_s_p50": p50,
+            "step_s_p90": float(np.percentile(step_s, 90)),
+            "tokens_per_s": tokens / p50,
+            "mfu": 6 * n_active * tokens / p50 / BF16_FLOPS_PER_S,
+            "floor_ms_6nt": 6 * n_active * tokens / BF16_FLOPS_PER_S * 1e3,
+            "run_s": run_s, "max_memory_allocated": peak,
+            "param_bytes": sum(p.numel() * p.element_size()
+                               for p in model.parameters()),
+            "moment_bytes": sum(m.numel() * m.element_size() for m in
+                                (*opt.mu.values(), *opt.nu.values()))}
+        out["profiled_step"] = profile_step(
+            torch, lambda: step(model, opt, last))
+        if cfg.family == "moe":
+            with torch.no_grad():       # the model's weights train
+                routes = moe_routing(torch, model, last["tokens"])
+            out["moe"] = {
+                "capacity": routes[0][2],
+                "assignments_per_layer": int(routes[0][0].numel()),
+                "dropped_by_layer": [int((slot == cfg.n_experts * cap).sum())
+                                     for _, slot, cap in routes]}
+        # (b) the loss falls on one fixed batch from fresh AdamW state
+        opt = None
+        opt = adamw_init(dict(model.named_parameters()),
+                         resolve_moment_dtype(cfg.moment_dtype))
+        fd = TRAIN_FAMILY_DESCENT
+        descend = make_train_step(cfg, TrainConfig(lr=fd["lr"],
+                                                   schedule="const"))
+        fixed = batch(fd["batch"])
+        descent = []
+        for _ in range(TRAIN_DESCENT_STEPS):
+            model, opt, m = descend(model, opt, fixed)
+            descent.append(float(m["loss"]))
+        out["descent"] = {**fd, "loss": descent}
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+        del model, opt, step, last, fixed
+    finally:
+        restore_signal_handlers(handlers)
+        if ckdir:
+            shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (c) float32, card against CPU; (d) mixtral on the (1, 1) mesh
+    fp = TRAIN_FAMILY_PARITY
+    c32 = whole.with_(n_layers=plan["parity"], param_dtype="float32",
+                      compute_dtype="float32")
+    tc = TrainConfig(lr=fp["lr"], schedule="const", seed=args.seed,
+                     checkpoint_dir=str(scratch_dir()))
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    handlers = saved_signal_handlers()
+    try:
+        t0 = time.perf_counter()
+        card = init_params(c32, torch.Generator(dev).manual_seed(args.seed),
+                           dev)
+        host = Transformer(c32, "cpu")
+        host.load_state_dict(card.state_dict())
+        pb = train_batch(torch, c32, fp["global_batch"], fp["seq_len"],
+                         fp["vision"], args.seed, 0, dev)
+        step = make_train_step(c32, tc)
+        res = {}
+        for name, model in (("cuda", card), ("cpu", host)):
+            opt = adamw_init(dict(model.named_parameters()),
+                             resolve_moment_dtype(c32.moment_dtype))
+            t1 = time.perf_counter()
+            _, opt, m = step(model, opt, {k: v.to(model.device)
+                                          for k, v in pb.items()})
+            res[name] = {k: float(v) for k, v in m.items()}
+            res[name]["seconds"] = time.perf_counter() - t1
+        del model, opt
+        with torch.no_grad():
+            diffs = [(a.detach().cpu() - b.detach()).abs()
+                     for a, b in zip(card.parameters(), host.parameters())]
+        out["parity"] = {
+            **res, "n_layers": c32.n_layers, "params": allocated_params(c32),
+            "dtype": "float32", "allow_tf32": False, **fp,
+            "params_max_abs_diff": max(float(d.max()) for d in diffs),
+            "params_past_1e-5": sum(int((d > 1e-5).sum()) for d in diffs),
+            "tol": TRAIN_FAMILY_PARITY_TOL,
+            "seconds": time.perf_counter() - t0}
+        del host, diffs
+        if plan.get("mesh"):
+            with one_rank_group(torch, dev) as mesh:
+                out["mesh"] = {"backend": "nccl", "mesh": {"data": 1,
+                                                           "model": 1},
+                               **mesh_step(torch, dev, mesh, c32, tc, pb,
+                                           card)}
+        del card
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+        restore_signal_handlers(handlers)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_case
+    emit(out)
+
+    name, tr = cfg.name, out["train"]
+    check(len(tr["loss"]) == tf["steps"] and all(
+        math.isfinite(v) for v in tr["loss"] + tr["grad_norm"] + descent),
+          f"{name}: every loss and grad norm is finite")
+    check(descent[-1] < descent[0],
+          f"{name}: the fixed-batch loss falls: {descent}")
+    pa, tol = out["parity"], TRAIN_FAMILY_PARITY_TOL
+    for k in ("loss", "grad_norm"):
+        check(math.isclose(pa["cuda"][k], pa["cpu"][k], rel_tol=tol),
+              f"{name}: float32 {k} on the card == on the CPU "
+              f"({pa['cuda'][k]} vs {pa['cpu'][k]})")
+    check(pa["params_max_abs_diff"] <= tol,
+          f"{name}: float32 parameters on the card == on the CPU "
+          f"({pa['params_max_abs_diff']})")
+    if "mesh" in out:
+        ms = out["mesh"]
+        for k in ("loss", "grad_norm"):
+            check(math.isclose(ms["step"][k], pa["cuda"][k],
+                               rel_tol=SHARDED_STEP_RTOL),
+                  f"{name}: {k} on the (1, 1) mesh == one device")
+        check(ms["params_max_abs_diff"] <= SHARDED_STEP_RTOL and
+              not ms["placements"]["wrong"],
+              f"{name}: the (1, 1) mesh's step == one device's: {ms}")
+    if "checkpoint" in out:
+        check(out["checkpoint"]["saves"] and
+              out["checkpoint"]["saves"][-1]["step"] == tf["steps"],
+              f"{name}: the final checkpoint was written")
+    return out
+
+
+@contextlib.contextmanager
+def one_rank_group(torch, dev):
+    """A one-rank NCCL process group (from a FileStore under build/) and
+    its host mesh (data 1, model 1); the group is destroyed and its store
+    removed on exit."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    store = Path(tempfile.mkdtemp(prefix="nccl_group.", dir=scratch_dir()))
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(store / "store"), 1), rank=0, world_size=1, device_id=dev)
+    try:
+        yield make_host_mesh(model=1, device=dev)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def mesh_step(torch, dev, mesh, cfg, tc, batch, one_device) -> dict:
+    """``Trainer(mesh=)``'s first step on ``batch``, from the seed
+    (``tc.seed``) that ``one_device`` was drawn from, against
+    ``one_device`` after its own step: the mesh step's metrics, the
+    largest parameter difference, bit equality, and the parameters and
+    moments whose placements are not the rule table's."""
+    from repro_torch.models.pspec_utils import mesh_axes, placements
+    from repro_torch.train import Trainer
+    from repro_torch.train import sharding as shd
+
+    rows, seq = next(iter(batch.values())).shape[:2]
+    t = Trainer(cfg, tc, dev, rows, seq, mesh=mesh)
+    model, opt = t.init_state()
+    t0 = time.perf_counter()
+    model, opt, m = t.train_step(model, opt, batch)
+    torch.cuda.synchronize()
+    res = {k: float(v) for k, v in m.items()}
+    res["seconds"] = time.perf_counter() - t0
+    mine = dict(one_device.named_parameters())
+    want = shd.flat_param_pspecs(cfg, mesh_axes(mesh))
+    want_m = shd.flat_moment_pspecs(cfg, mesh_axes(mesh))
+    wrong = [k for k, d in model.params.items()
+             if tuple(d.placements) != placements(mesh, want[k])
+             or tuple(opt.mu[k].placements) != placements(mesh, want_m[k])]
+    return {"step": res,
+            "params_max_abs_diff": max(
+                float((d.to_local() - mine[k].detach()).abs().max())
+                for k, d in model.params.items()),
+            "bit_equal": all(torch.equal(d.to_local(), mine[k])
+                             for k, d in model.params.items()),
+            "placements": {
+                "leaves": len(model.params), "wrong": wrong[:5],
+                **{k: [str(p) for p in model.params[k].placements]
+                   for k in ("blocks.0.wq", "embed")}}}
 
 
 def logic_swap_train_phase(args, torch, dev, smi, cuda_ms) -> dict:

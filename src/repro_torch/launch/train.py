@@ -17,8 +17,11 @@ itself before :func:`build`.  A ``--model-parallel`` that does not divide
 the world is refused.  Without a group it trains in one process on one
 device (``--device``: CUDA unless ``cpu``), and refuses a
 ``--model-parallel`` above 1, since one process has no mesh of that
-size.  A family other than dense raises ``NotImplementedError``
-(``Trainer``'s ``check_trainable``; ROADMAP queue 1 item 7).
+size.  It trains the dense, moe, ssm and hybrid families; the audio and
+vlm families, whose loss reads frames or patch embeddings that the
+loop's token pipeline does not make, are refused before anything is
+built, with the ``Trainer``'s message (``trainer.check_loop_trainable``):
+they train through ``make_train_step`` on an explicit batch.
 """
 from __future__ import annotations
 
@@ -32,7 +35,8 @@ from repro_torch.configs.registry import _MODULES
 from repro_torch.launch.mesh import (distributed_env, init_distributed,
                                      make_host_mesh)
 from repro_torch.train import TrainConfig, Trainer
-from repro_torch.train.trainer import _default_checkpoint_dir
+from repro_torch.train.trainer import (_default_checkpoint_dir,
+                                       check_loop_trainable)
 
 
 def build(argv=None) -> tuple[Trainer, argparse.Namespace]:
@@ -53,6 +57,11 @@ def build(argv=None) -> tuple[Trainer, argparse.Namespace]:
     ap.add_argument("--device", default=None,
                     help="where the model trains: CUDA unless 'cpu'")
     args = ap.parse_args(argv)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    try:
+        check_loop_trainable(cfg)
+    except ValueError as e:
+        ap.error(str(e))
     mesh, device = None, args.device
     if distributed_env():
         device = init_distributed(args.device)
@@ -66,7 +75,6 @@ def build(argv=None) -> tuple[Trainer, argparse.Namespace]:
                  f"{args.model_parallel} ranks; one process has none: run "
                  "it under torchrun")
 
-    cfg = get_config(args.arch, smoke=args.smoke)
     # arch-specific recipe (e.g. minicpm's WSD schedule)
     mod = importlib.import_module(_MODULES[args.arch])
     schedule = getattr(mod, "LR_SCHEDULE", "cosine")

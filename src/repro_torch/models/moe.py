@@ -12,6 +12,13 @@ identical for tokens within capacity:
     a batched (B, E, cap, d) x (E, d, ff) product, and gather back with the
     gate weights.  Assignments past an expert's capacity are dropped.
 
+The dispatch and the combine are gathers both ways: their backward
+(:class:`_RowGather`) gathers the gradient through the inverse map (each
+token's k slots; each slot's one assignment) where autograd's own
+backward of a gather is a scatter-add, whose atomics sum in no fixed
+order on CUDA.  So the gradient of a token sums its k expert outputs in
+choice order, on the card as on the CPU.
+
 Expert weights are stacked (E, d, ff).  The reference's ``constrain``
 calls (sharding annotations on the expert buffers) stand at its places;
 without an active mesh they do nothing.  The router runs in float32 from the compute-dtype input, as in the reference.
@@ -63,43 +70,69 @@ def capacity(cfg, s: int) -> int:
 
 
 def dispatch_plan(idx: torch.Tensor, e: int, cap: int
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Each row's routing plan, index tensors only, from its top-k
     assignments ``idx`` (B, S, k).  Returns
       inv     (B, E*cap) the token feeding each expert slot (S = none)
       a_slot  (B, S, k)  each assignment's buffer slot (E*cap = dropped)
+      assign  (B, E*cap) the assignment (token * k + choice) feeding each
+                         slot (S*k = none)
     An assignment's place in its expert's queue is its rank among that
     expert's assignments in (token, choice) order."""
     b, s, k = idx.shape
     dev = idx.device
     fe = idx.reshape(b, s * k)
-    ft = torch.arange(s, device=dev).repeat_interleave(k)
     order = torch.argsort(fe, dim=-1, stable=True)
     se = torch.gather(fe, 1, order)
-    st_ = ft[order]
     pos = torch.arange(s * k, device=dev) - torch.searchsorted(
         se, se, side="left")
     slot = torch.where(pos < cap, se * cap + pos, e * cap)  # dummy overflow
     # every dropped assignment writes the dummy slot e*cap, the only index
     # written twice; it is sliced off, so the order of those writes does
     # not matter
-    inv = torch.full((b, e * cap + 1), s, dtype=torch.int64,
-                     device=dev).scatter_(1, slot, st_)
+    assign = torch.full((b, e * cap + 1), s * k, dtype=torch.int64,
+                        device=dev).scatter_(1, slot, order)[:, :e * cap]
+    inv = torch.where(assign < s * k, assign // k, s)
     a_slot = torch.zeros((b, s * k), dtype=torch.int64,
                          device=dev).scatter_(1, order, slot)
-    return inv[:, :e * cap], a_slot.reshape(b, s, k)
+    return inv, a_slot.reshape(b, s, k), assign
 
 
 def route(params, x, cfg):
     """The sorted path's routing of x (B, S, D): (gates (B, S, k) float32,
-    idx (B, S, k), inv, a_slot, cap); see :func:`dispatch_plan`."""
+    idx (B, S, k), inv, a_slot, assign, cap); see :func:`dispatch_plan`."""
     b, s, d = x.shape
     e = cfg.n_experts
     cap = capacity(cfg, s)
     logits = router_probs(params, x.reshape(b * s, d)).reshape(b, s, e)
     gates, idx = _top_k_gates(logits, cfg.experts_per_token)
-    inv, a_slot = dispatch_plan(idx, e, cap)
-    return gates, idx, inv, a_slot, cap
+    return (gates, idx, *dispatch_plan(idx, e, cap), cap)
+
+
+def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (B, N, D), idx (B, M) -> (B, M, D): row idx[b, m] of x[b], a zero
+    row where idx is N."""
+    xpad = torch.cat([x, x.new_zeros((x.shape[0], 1, x.shape[2]))], dim=1)
+    return torch.gather(xpad, 1, idx[..., None].expand(-1, -1, x.shape[2]))
+
+
+class _RowGather(torch.autograd.Function):
+    """``_gather_rows(x, idx)`` whose backward is a gather too: ``back``
+    (B, N, m) lists for each row of x the rows of the output it feeds (M
+    where it feeds fewer than m), so the gradient of a row is the sum of
+    those output rows' gradients, in the order ``back`` lists them."""
+
+    @staticmethod
+    def forward(ctx, x, idx, back):
+        ctx.save_for_backward(back)
+        return _gather_rows(x, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        back, = ctx.saved_tensors
+        b, n, m = back.shape
+        rows = _gather_rows(g.contiguous(), back.reshape(b, n * m))
+        return rows.reshape(b, n, m, -1).sum(dim=2), None, None
 
 
 def moe_sorted(params, x, cfg):
@@ -107,11 +140,10 @@ def moe_sorted(params, x, cfg):
     (capacity per batch row)."""
     b, s, d = x.shape
     e = cfg.n_experts
-    gates, _, inv, a_slot, cap = route(params, x, cfg)
-    # gather-based dispatch: slot `s` of the padded rows is the zero row
-    xpad = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)
-    buf = torch.gather(xpad, 1, inv[..., None].expand(-1, -1, d)
-                       ).reshape(b, e, cap, d)
+    gates, _, inv, a_slot, assign, cap = route(params, x, cfg)
+    # gather-based dispatch (token `s`, none, is the zero row); a token's
+    # gradient gathers its k slots'
+    buf = _RowGather.apply(x, inv, a_slot).reshape(b, e, cap, d)
     # the reference's layout constraints on the expert buffers
     buf = constrain(buf, "dp", None, None, None)
     g = constrain(torch.einsum("becd,edf->becf", buf,
@@ -124,11 +156,11 @@ def moe_sorted(params, x, cfg):
     y = torch.einsum("becf,efd->becd", h, params["w_down"].to(x.dtype))
     y = constrain(y, "dp", None, None, None)
     # a dropped assignment points at the dummy zero row, so its gate weight
-    # contributes nothing regardless of value
-    ypad = torch.cat([y.reshape(b, e * cap, d), y.new_zeros((b, 1, d))],
-                     dim=1)
-    contrib = torch.gather(ypad, 1, a_slot.reshape(b, -1, 1).expand(
-        -1, -1, d)).reshape(b, s, -1, d)                   # (B, S, k, D)
+    # contributes nothing regardless of value; a slot's gradient gathers
+    # its one assignment's
+    contrib = _RowGather.apply(y.reshape(b, e * cap, d),
+                               a_slot.reshape(b, -1), assign[..., None]
+                               ).reshape(b, s, -1, d)      # (B, S, k, D)
     out = torch.einsum("bskd,bsk->bsd", contrib.float(), gates.float())
     return constrain(out.to(x.dtype), "dp", None, None)
 

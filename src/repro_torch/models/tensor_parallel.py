@@ -1,5 +1,5 @@
-"""Megatron tensor parallelism over a mesh's 'model' dim, for the dense
-family's training.
+"""Megatron tensor parallelism over a mesh's 'model' dim, for the
+training of the dense, vlm and moe families.
 
 The reference leaves tensor parallelism to XLA's SPMD partitioner, which
 splits each matrix product as ``train/sharding.py``'s rules lay the
@@ -9,13 +9,17 @@ holds a contiguous block of the query and key/value heads (``wq``, ``wk``,
 ``wv`` by column, ``wo`` by row), of the FFN's hidden units (``w_gate``,
 ``w_up`` by column, ``w_down`` by row) and of the vocabulary (``embed``
 by row, ``lm_head`` by column) — exactly the blocks ``Shard`` on 'model'
-gives them — and a block runs its own heads and units:
+gives them — and a block runs its own heads and units.  A MoE block's
+experts split the same way, each rank holding the same F-block of every
+expert (``w_gate``, ``w_up`` by column, ``w_down`` by row: the
+reference's ``_MOE_3D`` rule); its routing and dispatch run replicated:
 
   * :meth:`TensorParallel.enter` (identity forward, all-reduce of the
     gradient backward) where the replicated activations enter a split
     product;
   * :meth:`TensorParallel.exit` (all-reduce forward, identity backward)
-    on the partial sums that leave ``wo`` and ``w_down``;
+    on the partial sums that leave ``wo`` and ``w_down`` (the MoE's
+    gate-weighted combine of its experts' partial outputs);
   * :meth:`TensorParallel.embed`, the vocabulary-split lookup: each rank
     looks up the tokens in its rows, zeros the rest, and the sum is
     all-reduced;
@@ -26,10 +30,12 @@ gives them — and a block runs its own heads and units:
 A block under tensor parallelism carries :meth:`local_config`, the
 configuration of its share (``n_heads``, ``n_kv_heads`` and ``d_ff``
 divided by the group's size), so the attention and FFN code runs as is.
-The replicated weights applied head by head inside the split (qwen3's
-``q_norm`` and ``k_norm``, :data:`PARTIAL_GRADS`) see only this rank's
-heads, so their gradients are partial sums that the trainer all-reduces
-over the group.
+The replicated weights applied inside the split (qwen3's ``q_norm`` and
+``k_norm`` head by head, the MoE router whose gates weight each rank's
+partial expert outputs; :data:`PARTIAL_GRADS`) see only this rank's
+share, so their gradients are partial sums that the trainer all-reduces
+over the group.  The vlm's patch embeddings enter replicated before the
+split lookup's tokens.
 """
 from __future__ import annotations
 
@@ -40,9 +46,9 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 
-#: Replicated weights used on each rank's own heads: their gradients are
+#: Replicated weights used on each rank's own share: their gradients are
 #: summed over the 'model' group.
-PARTIAL_GRADS = ("q_norm", "k_norm")
+PARTIAL_GRADS = ("q_norm", "k_norm", "w_router")
 
 
 class _Enter(torch.autograd.Function):
@@ -122,7 +128,13 @@ class TensorParallel:
 
     @staticmethod
     def fits(cfg, size: int) -> bool:
-        """Whether ``cfg``'s heads, FFN units and vocabulary split into
-        ``size`` whole blocks."""
+        """Whether ``cfg`` runs split over a group of ``size``: a dense
+        (SwiGLU, without the logic FFN), vlm or moe model whose heads, FFN
+        units (each expert's, for moe) and vocabulary split into ``size``
+        whole blocks.  Every other family runs gathered: the ssm and the
+        hybrid's recurrent blocks, and the audio GeLU MLP, have no split
+        here."""
+        if cfg.family not in ("dense", "vlm", "moe") or cfg.logic_mlp:
+            return False
         return all(n % size == 0 for n in (cfg.n_heads, cfg.n_kv_heads,
                                            cfg.d_ff, cfg.padded_vocab))

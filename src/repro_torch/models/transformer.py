@@ -27,19 +27,24 @@ parameters ask for it: the model is built with ``requires_grad`` off, the
 trainer turns it on, and the serving paths run under
 ``torch.inference_mode()``.  ``cfg.remat`` (the reference's
 ``_maybe_remat``) applies while grad is enabled: ``"full"`` checkpoints
-each block (``torch.utils.checkpoint``, non-reentrant), ``"dots"`` saves
-only the matrix products' outputs and recomputes the rest, ``"none"`` is
-the plain loop.  :func:`train_loss` is the reference's loss: next-token,
-over the text only for vlm, against ``labels`` for audio.
+each block of every kind (``torch.utils.checkpoint``, non-reentrant),
+``"dots"`` saves only the matrix products' outputs and recomputes the
+rest, ``"none"`` is the plain loop.  The reference remats the hybrid per
+pattern group (its scan body); the port remats per block, since its loop
+runs block by block: a recomputation repeats the forward's arithmetic
+exactly, so either gives the same numbers, and per block holds one
+block's activations at a time instead of a group's.  :func:`train_loss`
+is the reference's loss: next-token, over the text only for vlm, against
+``labels`` for audio.
 
 The reference's sharding annotations are here at the same places
 (``models/pspec_utils.constrain``: the residual stream between blocks,
 sequence-sharded over 'model' with ``cfg.seq_parallel``, and the logits);
 they redistribute DTensors under an active mesh and change nothing else.
-Under the sharded trainer a dense model runs its split products through
-:meth:`Transformer.set_tensor_parallel` (``models/tensor_parallel.py``);
-without it no collective runs.  The reference's layer and group scans are
-a Python loop over the blocks.
+Under the sharded trainer a dense, vlm or moe model runs its split
+products through :meth:`Transformer.set_tensor_parallel`
+(``models/tensor_parallel.py``); without it no collective runs.  The
+reference's layer and group scans are a Python loop over the blocks.
 """
 from __future__ import annotations
 
@@ -341,11 +346,13 @@ class Transformer(nn.Module):
         """Run as one rank's share of a 'model' group
         (``models/tensor_parallel.TensorParallel``): the blocks take the
         share's configuration, the embedding and head their vocabulary
-        blocks.  The caller gives the parameters their shares.  Dense
-        family only, without the logic FFN."""
-        if self.cfg.family != "dense" or self.cfg.logic_mlp:
-            raise ValueError(f"{self.cfg.name}: tensor parallelism splits "
-                             "the dense family's attention and SwiGLU FFN")
+        blocks.  The caller gives the parameters their shares.  The
+        dense, vlm and moe families only (``TensorParallel.fits``)."""
+        if not tp.fits(self.cfg, tp.size):
+            raise ValueError(f"{self.cfg.name}: tensor parallelism over "
+                             f"{tp.size} ranks splits the attention and "
+                             "SwiGLU or expert FFN of the dense, vlm and "
+                             "moe families into whole blocks")
         self.tp = tp
         for blk in self.blocks:
             blk.tp, blk.cfg = tp, tp.local_config(self.cfg)

@@ -13,10 +13,13 @@ explicit, around the one-device step's arithmetic:
   * **Gather.**  Before a step each parameter is all-gathered over 'pod'
     and 'data' (FSDP's all-gather on use).  Over 'model' it stays split
     where the model runs tensor parallel (:func:`model_parallel`: the
-    dense family's heads, FFN units and vocabulary split into whole
-    blocks; ``models/tensor_parallel.py``), and is gathered too
-    otherwise.  On a mesh dim of one rank nothing moves: on a (1, 1) mesh
-    the model's parameters are the DTensors' own local tensors.
+    dense, vlm and moe families' heads, FFN units (each expert's) and
+    vocabulary split into whole blocks; ``models/tensor_parallel.py``),
+    and is gathered too otherwise: the ssm (``tensor_parallel=False``),
+    the hybrid (one kv head) and audio (its GeLU MLP), which gives the
+    reference's result either way.  On a mesh dim of one rank nothing
+    moves: on a (1, 1) mesh the model's parameters are the DTensors' own
+    local tensors.
   * **Batch.**  Each rank runs its rows of the global batch
     (``sharding.batch_pspec``: the rows split over the batch axes, mesh
     order major first), with the one-device step's micro-batch loop.
@@ -59,10 +62,10 @@ from repro_torch.train.sharding import (batch_pspec, moment_placements,
 def model_parallel(cfg, mesh) -> TensorParallel | None:
     """This rank's share of the mesh's 'model' group, when the model runs
     tensor parallel over it: a 'model' dim of more than one rank,
-    ``cfg.tensor_parallel``, and heads, FFN units and vocabulary that
-    split into whole blocks.  None otherwise (the parameters are then
-    gathered over 'model' too, and every rank of the group runs the same
-    rows)."""
+    ``cfg.tensor_parallel``, and ``TensorParallel.fits`` (a dense, vlm or
+    moe model whose heads, FFN units and vocabulary split into whole
+    blocks).  None otherwise (the parameters are then gathered over
+    'model' too, and every rank of the group runs the same rows)."""
     names = mesh.mesh_dim_names
     if "model" not in names:
         return None

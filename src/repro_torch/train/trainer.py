@@ -9,7 +9,7 @@ Port of ``src/repro/train/trainer.py``.  The step:
   * the int8 round trip of every gradient with ``tc.compress_grads`` (the
     wire format of the cross-pod all-reduce; optim/compression.py), its
     256-element blocks running over each leaf as the reference stacks it
-    (a block weight's layers end to end, :func:`int8_round_trip`);
+    (a stacked weight's layers end to end, :func:`int8_round_trip`);
   * global-norm clipping, then AdamW (updating the model's parameters in
     place) under the WSD, cosine or constant schedule;
   * metrics ``loss``, ``grad_norm`` and ``lr`` (the rate of the step
@@ -20,9 +20,12 @@ async checkpoints every ``checkpoint_every`` steps and a final one, a
 preemption-triggered stop, the straggler monitor, and auto-resume from
 the newest complete checkpoint.
 
-Only the dense family trains (:func:`check_trainable`): the other
-families serve, but their training has not been held against the
-reference (ROADMAP queue 1 item 7).
+The step trains every family on the batch its loss reads: ``tokens``
+(dense, moe, ssm, hybrid), ``frames`` and ``labels`` (audio), ``tokens``
+and ``vision`` (vlm).  The loop feeds a ``TokenPipeline``, tokens only,
+so :class:`Trainer` refuses the audio and vlm families
+(:func:`check_loop_trainable`), whose inputs the reference's loop cannot
+feed either; they train through :func:`make_train_step`.
 
 With a mesh (``Trainer(..., mesh=)``, a ``torch.distributed``
 ``DeviceMesh`` with dims ('data', 'model') or ('pod', 'data', 'model'))
@@ -46,11 +49,13 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import Replicate
 
+from repro_torch.convert import reference_layout
 from repro_torch.data.synthetic import TokenPipeline
 from repro_torch.kernels.logic_dsp.ops import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.pspec_utils import activation_sharding
-from repro_torch.models.transformer import Transformer, init_params, train_loss
+from repro_torch.models.transformer import (Transformer, hybrid_grouping,
+                                            init_params, train_loss)
 from repro_torch.optim import (AdamWState, adamw_init, adamw_update,
                                clip_by_global_norm, cosine_schedule,
                                resolve_moment_dtype, wsd_schedule)
@@ -91,26 +96,37 @@ def make_lr_fn(tc: TrainConfig):
     return lambda step: torch.tensor(tc.lr, dtype=torch.float32)
 
 
-def layer_stacks(names) -> list[list[str]]:
-    """The parameter names grouped as the reference's tree stacks them:
-    ``blocks.{i}.{name}`` for every layer i, in order, is one leaf
-    (``blocks/{name}`` of shape (n_layers, ...)); any other name is a leaf
-    of its own."""
-    groups: dict[str, list[str]] = {}
-    for n in names:
+def layer_stacks(names, cfg: ModelConfig) -> list[list[str]]:
+    """The parameter names grouped as the reference's tree stores them
+    (``convert.reference_layout``), each group one reference leaf with its
+    layers in order: ``blocks``, ``blocks.{i}.{name}`` over every layer;
+    ``groups``, for pattern position j the layers j, j + plen, ... below
+    ``n_groups * plen`` (``groups[j]/{name}``), each tail layer's names
+    apart; ``layers``, every layer's names apart.  A top-level name is a
+    leaf of its own."""
+    layout = reference_layout(cfg)
+    plen = len(cfg.block_pattern) if layout == "groups" else 1
+    stacked = cfg.n_layers if layout == "blocks" else \
+        hybrid_grouping(cfg)[0] * plen if layout == "groups" else 0
+    stacks: dict = {}
+    for n in sorted(names, key=lambda n: int(n.split(".")[1])
+                    if n.startswith("blocks.") else -1):
         parts = n.split(".")
-        groups.setdefault(parts[2] if parts[0] == "blocks" else n,
-                          []).append(n)
-    return list(groups.values())
+        key = n
+        if parts[0] == "blocks" and int(parts[1]) < stacked:
+            key = (int(parts[1]) % plen, parts[2])
+        stacks.setdefault(key, []).append(n)
+    return list(stacks.values())
 
 
-def int8_round_trip(grads: dict) -> dict:
+def int8_round_trip(grads: dict, cfg: ModelConfig) -> dict:
     """Each gradient quantized to int8 and back (``compress_int8`` then
-    ``decompress_int8`` in its own dtype), the blocks running over each
-    reference leaf: a block weight's layers are quantized end to end, so
-    a block may span two layers exactly where the reference's does."""
+    ``decompress_int8`` in its own dtype), the 256-element blocks running
+    over each reference leaf (:func:`layer_stacks`): a stacked weight's
+    layers are quantized end to end, so a block may span two layers
+    exactly where the reference's does."""
     out = {}
-    for names in layer_stacks(grads):
+    for names in layer_stacks(grads, cfg):
         flat = torch.cat([grads[n].reshape(-1) for n in names])
         q, s = compress_int8(flat)
         rec = decompress_int8(q, s, flat.shape, flat.dtype)
@@ -118,6 +134,19 @@ def int8_round_trip(grads: dict) -> dict:
                                               for n in names])):
             out[n] = piece.view(grads[n].shape)
     return out
+
+
+def check_loop_trainable(cfg: ModelConfig) -> None:
+    """The :class:`Trainer` feeds a ``TokenPipeline``, which makes tokens
+    only: refuse a family whose loss reads another input."""
+    if cfg.family in ("audio", "vlm"):
+        need = "frames and their labels" if cfg.family == "audio" else \
+            "stub patch embeddings ('vision') beside the tokens"
+        raise ValueError(
+            f"{cfg.name} ({cfg.family}) trains on {need}, and the "
+            "Trainer's TokenPipeline makes tokens only (the reference's "
+            "Trainer fails on the missing input); train it through "
+            "make_train_step with an explicit batch")
 
 
 def _grads_of(model, params, batch):
@@ -156,7 +185,11 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig) -> Callable:
     metrics)``.  The model's parameters are trained (their
     ``requires_grad`` is turned on) and updated in place; ``opt_state`` is
     an :class:`AdamWState` keyed by the parameters' names; ``batch`` holds
-    ``tokens`` (B, S).  The metrics are 0-d float32 tensors."""
+    the inputs of the family's loss, each with the rows on its leading
+    dim: ``tokens`` (B, S); for audio ``frames`` (B, S, frontend_dim) and
+    ``labels`` (B, S); for vlm ``tokens`` (B, S_t) and ``vision`` (B,
+    n_vis, D).  Micro-batches split every key.  The metrics are 0-d
+    float32 tensors."""
     lr_fn = make_lr_fn(tc)
     resolve_moment_dtype(cfg.moment_dtype)   # validate early
 
@@ -168,7 +201,7 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig) -> Callable:
             # the int8 round trip models the wire format of the cross-pod
             # all-reduce; its quantization error is what convergence must
             # absorb
-            grads = int8_round_trip(grads)
+            grads = int8_round_trip(grads, cfg)
         grads, gnorm = clip_by_global_norm(grads, tc.clip_norm)
         _, new_opt = adamw_update(grads, opt_state, params, lr=lr_fn,
                                   weight_decay=tc.weight_decay)
@@ -200,7 +233,7 @@ def make_sharded_train_step(cfg: ModelConfig, tc: TrainConfig,
             # the round trip over each whole leaf, as the reference's
             # blocks run over its global (layer-stacked) gradient
             whole = int8_round_trip({k: sm.whole(k, g)
-                                     for k, g in grads.items()})
+                                     for k, g in grads.items()}, cfg)
             replicated = (Replicate(),) * sm.mesh.ndim
             grads = {k: sm.to_storage(k, g, replicated)
                      for k, g in whole.items()}
@@ -216,27 +249,18 @@ def make_sharded_train_step(cfg: ModelConfig, tc: TrainConfig,
     return train_step
 
 
-def check_trainable(cfg: ModelConfig) -> None:
-    """The port trains the dense family only: no other family's training
-    (its loss, gradients, the int8 round trip over its layer stacks) has
-    been held against the reference."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family} family is not ported "
-            "(ROADMAP queue 1 item 7); the port trains the dense family")
-
-
 class Trainer:
     """The training loop on one device (CUDA unless ``device="cpu"``), or
     on ``mesh``, a DeviceMesh over the whole process group whose ranks
     each run this loop on their own ``device``.  After :meth:`run` the
     trained model (a :class:`~repro_torch.train.parallel.ShardedModel`
     under a mesh) and optimizer state stay on the trainer as ``model``
-    and ``opt``."""
+    and ``opt``.  Families whose loss reads more than tokens (audio, vlm)
+    are refused (:func:`check_loop_trainable`)."""
 
     def __init__(self, cfg: ModelConfig, tc: TrainConfig, device,
                  global_batch: int, seq_len: int, mesh=None):
-        check_trainable(cfg)
+        check_loop_trainable(cfg)
         self.cfg, self.tc = cfg, tc
         self.device = resolve_device(device)
         self.mesh = mesh

@@ -280,7 +280,7 @@ def test_moe_capacity_drops_bounded(rng):
                                     ).astype(np.float32))
     y = moe.moe_sorted(p, x, cfg)
     assert torch.isfinite(y).all()
-    _, _, inv, a_slot, cap = moe.route(p, x, cfg)
+    _, _, inv, a_slot, _, cap = moe.route(p, x, cfg)
     e = cfg.n_experts
     assert (a_slot == e * cap).any(), "capacity 1.0 drops here"
     # in each row a kept assignment has a slot of its own, and the slot
@@ -316,7 +316,7 @@ def test_moe_sorted_drops_match_reference_at_full_capacity_factor(rng):
     assert full_cf == 1.25
     ref_cfg, lp, p, cfg = _moe_layer(capacity_factor=full_cf)
     x = rng.normal(size=(4, 16, cfg.d_model)).astype(np.float32)
-    _, idx, _, a_slot, cap = moe.route(p, torch.from_numpy(x), cfg)
+    _, idx, _, a_slot, _, cap = moe.route(p, torch.from_numpy(x), cfg)
     ref_logits = ref_moe.router_probs(lp, jnp.asarray(x).reshape(-1,
                                       cfg.d_model), cfg.n_experts)
     _, ref_idx = ref_moe._top_k_gates(ref_logits, cfg.experts_per_token)
@@ -583,16 +583,19 @@ def test_launch_serve_runs_mixtral_as_module():
     assert "served 2 requests, 4 decode steps" in proc.stdout
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "mamba2-370m",
-                                  "recurrentgemma-2b", "internvl2-76b",
-                                  "hubert-xlarge"])
-def test_training_other_families_is_refused(arch, tmp_path):
+@pytest.mark.parametrize("arch", ["internvl2-76b", "hubert-xlarge"])
+def test_training_other_families_is_refused(arch, tmp_path, capsys):
+    """The loop's token pipeline cannot feed the vlm's patch embeddings
+    or the audio frames: the Trainer and the launcher refuse both and
+    point at make_train_step (the other families train:
+    ``test_torch_train_families.py``)."""
     cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    with pytest.raises(ValueError, match="TokenPipeline.*make_train_step"):
         Trainer(cfg, TrainConfig(checkpoint_dir=str(tmp_path)), "cpu", 2, 8)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    with pytest.raises(SystemExit):
         launch_train.build(["--arch", arch, "--smoke", "--device", "cpu",
                             "--checkpoint-dir", str(tmp_path)])
+    assert "TokenPipeline makes tokens only" in capsys.readouterr().err
 
 
 def test_logic_mlp_is_refused_outside_the_dense_family():

@@ -18,13 +18,27 @@ level): at most OUTLIERS of the elements (1 in 10,000) may fall outside
 On (1, 2) also minicpm-2b smoke (MHA, the tied embedding's vocabulary
 split shared by the lookup and the head) and qwen3-8b smoke with remat
 "full" (a block recomputed with its collectives).  Every rank's
-parameters and moments carry the reference's specs as placements.  A checkpoint written under (2, 1) restores under (1, 2), and
-in one process, bit for bit; the launcher trains under a two-rank group
-and refuses a ``--model-parallel`` that does not divide it.
+parameters and moments carry the reference's specs as placements.  A
+checkpoint written under (2, 1) restores under (1, 2), and in one
+process, bit for bit; the launcher trains under a two-rank group and
+refuses a ``--model-parallel`` that does not divide it.
+
+The other families on (2, 1), (1, 2) and (2, 2), with ``grad_accum`` 1
+and the round trip off, and 2 with it on, at the same tolerances:
+mixtral-8x7b smoke tensor parallel on each expert's F (its router's
+gradient summed over 'model'), mamba2-370m and recurrentgemma-2b at 5
+layers (one group and a 2-layer tail) gathered over 'model'; their
+placements (the MoE's ``_MOE_3D``, the hybrid's ``groups`` and ``tail``)
+the reference's, and a hybrid checkpoint restored across meshes bit for
+bit.  internvl2-76b (tensor parallel, its patch embeddings before the
+split lookup) and hubert-xlarge (gathered) through
+``make_sharded_train_step`` on explicit batches, against the one-device
+step.
 
 Each run starts its own ranks as subprocesses on a free port, with a
 timeout, so a fault cannot hang the suite.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -40,7 +54,9 @@ from repro.configs import get_config as ref_get_config
 from repro.models.transformer import param_shapes as ref_param_shapes
 from repro.train import sharding as ref_shd
 from repro_torch.configs import get_config
+from repro_torch.convert import reference_layout
 from repro_torch.launch.mesh import free_port
+from repro_torch.models.transformer import hybrid_grouping
 from repro_torch.train import CheckpointManager, TrainConfig, Trainer
 from repro_torch.train import sharding as shd
 
@@ -67,7 +83,8 @@ from repro_torch.train import TrainConfig, Trainer
 job = json.loads(sys.argv[1])
 init_distributed("cpu")
 rank = torch.distributed.get_rank()
-cfg = get_config(job["arch"], smoke=True).with_(remat=job["remat"])
+cfg = get_config(job["arch"], smoke=True).with_(remat=job["remat"],
+                                                **job["over"])
 
 
 def code(pl):
@@ -85,15 +102,14 @@ def mesh_of(shape, names):
     return init_device_mesh("cpu", tuple(shape), mesh_dim_names=tuple(names))
 
 
-out = {}
-if job["kind"] == "step":
-    mesh = mesh_of(job["shape"], job["names"])
-    for accum, compress in job["variants"]:
-        t = trainer(mesh, os.path.join(job["dir"], f"{accum}{compress}"),
+def steps(mesh, variants, sub=""):
+    res = {}
+    for accum, compress in variants:
+        t = trainer(mesh, os.path.join(job["dir"], f"{sub}{accum}{compress}"),
                     accum, compress)
         hist = t.run(job["steps"], log_every=0)
         full = t.model.full_state_dict()
-        out[f"{accum}-{compress}"] = {
+        res[f"{accum}-{compress}"] = {
             "history": [{k: h[k] for k in ("loss", "grad_norm", "lr")}
                         for h in hist],
             "params": full,
@@ -104,6 +120,38 @@ if job["kind"] == "step":
             "tp": t.model.tp is not None,
             "rows": [t.rows[0].start, t.rows[0].stop],
         }
+    return res
+
+
+out = {}
+if job["kind"] == "step":
+    out = steps(mesh_of(job["shape"], job["names"]), job["variants"])
+elif job["kind"] == "families":         # each arch on each mesh
+    for arch, over in job["archs"]:
+        cfg = get_config(arch, smoke=True).with_(**over)
+        for shape in job["shapes"]:
+            key = "x".join(map(str, shape))
+            out[arch, key] = steps(mesh_of(shape, ("data", "model")),
+                                   job["variants"], f"{arch}{key}")
+elif job["kind"] == "explicit":         # make_sharded_train_step
+    from repro_torch.models.pspec_utils import activation_sharding
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.parallel import ShardedModel, batch_rows
+    from repro_torch.train.trainer import make_sharded_train_step
+    mesh = mesh_of(job["shape"], job["names"])
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    sm = ShardedModel(model.requires_grad_(True), mesh)
+    opt = sm.init_opt(torch.float32)
+    rows = batch_rows(mesh, job["batch"])
+    step = make_sharded_train_step(cfg, TrainConfig(
+        lr=1e-3, warmup_steps=1, total_steps=10), rows)
+    hist = []
+    with activation_sharding(mesh):
+        for b in torch.load(job["batches"]):
+            sm, opt, m = step(sm, opt, {k: v[rows[0]] for k, v in b.items()})
+            hist.append({k: float(v) for k, v in m.items()})
+    out = {"history": hist, "params": sm.full_state_dict(),
+           "tp": sm.tp is not None}
 else:                                   # checkpoint across meshes
     a = trainer(mesh_of((2, 1), ("data", "model")), job["dir"])
     a.run(job["steps"], log_every=0)
@@ -126,7 +174,7 @@ destroy()
 def _run_ranks(job: dict, world: int, tmp: Path) -> dict:
     """Start ``world`` gloo ranks of WORKER on a free port; rank 0's
     results."""
-    job = dict(dict(arch=ARCH, remat="none", batch=BATCH, seq=SEQ,
+    job = dict(dict(arch=ARCH, remat="none", over={}, batch=BATCH, seq=SEQ,
                     steps=STEPS), **job, out=str(tmp / "out.pt"),
                dir=str(tmp / "ck"))
     port = free_port()
@@ -188,12 +236,10 @@ def one_process(tmp_path_factory):
     return get
 
 
-@pytest.mark.parametrize("accum,compress", VARIANTS)
-@pytest.mark.parametrize("mesh", sorted(MESHES))
-def test_sharded_step_matches_one_process(mesh, accum, compress,
-                                          sharded_runs, one_process):
-    got = sharded_runs(mesh)[f"{accum}-{compress}"]
-    hist, params = one_process(accum, compress)
+def _assert_matches(got: dict, hist: list, params: dict) -> None:
+    """A sharded run against one process's: each step's loss and grad
+    norm within rtol 1e-5 (lr 1e-6), the parameters within 4 lr and at
+    most OUTLIERS of them past P_ATOL."""
     assert len(got["history"]) == len(hist) == STEPS
     for g, w in zip(got["history"], hist):
         for k in ("loss", "grad_norm"):
@@ -207,6 +253,14 @@ def test_sharded_step_matches_one_process(mesh, accum, compress,
         outside += int((diff > P_ATOL).sum())
         total += p.numel()
     assert outside <= OUTLIERS * total, (outside, total)
+
+
+@pytest.mark.parametrize("accum,compress", VARIANTS)
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_sharded_step_matches_one_process(mesh, accum, compress,
+                                          sharded_runs, one_process):
+    got = sharded_runs(mesh)[f"{accum}-{compress}"]
+    _assert_matches(got, *one_process(accum, compress))
     # the model ran tensor parallel exactly where 'model' has two ranks
     assert got["tp"] == (MESHES[mesh][0][-1] == 2)
 
@@ -264,15 +318,15 @@ class FakeMesh:
         return self._shape
 
 
-@pytest.mark.parametrize("mesh", sorted(MESHES))
-def test_every_leaf_carries_the_reference_placements(mesh, sharded_runs):
-    """Parameters: the reference's stacked spec without its layer axis;
-    moments: the reference's moment rule on the per-layer tree (ZeRO over
-    'pod' on a 3-axis mesh)."""
-    shape, names = MESHES[mesh]
+def _assert_reference_placements(got: dict, arch: str, over: dict,
+                                 shape, names) -> None:
+    """Parameters: the reference's spec of the leaf that holds the layer
+    (a ``blocks`` or ``groups`` stack's spec without its layer axis, a
+    ``tail`` layer's own); moments: the reference's moment rule on the
+    per-layer tree (ZeRO over 'pod' on a 3-axis mesh)."""
     fake = FakeMesh(dict(zip(names, shape)))
-    ref_cfg, cfg = ref_get_config(ARCH, smoke=True), \
-        get_config(ARCH, smoke=True)
+    ref_cfg = dataclasses.replace(ref_get_config(arch, smoke=True), **over)
+    cfg = get_config(arch, smoke=True).with_(**over)
     stacked = ref_shd.param_pspecs(ref_cfg, fake, ref_param_shapes(ref_cfg))
     layers = shd.param_shapes(cfg, "layers")
     ref_layers = {k: jax.ShapeDtypeStruct(tuple(v.shape), np.float32)
@@ -281,16 +335,35 @@ def test_every_leaf_carries_the_reference_placements(mesh, sharded_runs):
         {k: jax.ShapeDtypeStruct(tuple(v.shape), np.float32)
          for k, v in layer.items()} for layer in layers["layers"]]
     moments = ref_shd.moment_pspecs(ref_cfg, fake, ref_layers)
-    got = sharded_runs(mesh)["1-False"]
+    layout = reference_layout(cfg)
+    plen = len(cfg.block_pattern)
+    n_stacked = hybrid_grouping(cfg)[0] * plen
+
+    def spec_of(i: int, leaf: str):
+        if layout == "blocks":
+            return tuple(stacked["blocks"][leaf])[1:]
+        if layout == "layers":
+            return tuple(stacked["layers"][i][leaf])
+        if i < n_stacked:
+            return tuple(stacked["groups"][i % plen][leaf])[1:]
+        return tuple(stacked["tail"][i - n_stacked][leaf])
+
     for n, codes in got["placements"].items():
         if n.startswith("blocks."):
             _, i, leaf = n.split(".")
-            spec = tuple(stacked["blocks"][leaf])[1:]
+            spec = spec_of(int(i), leaf)
             mspec = moments["layers"][int(i)][leaf]
         else:
             spec, mspec = stacked[n], moments[n]
         assert codes == _codes(spec, names), n
         assert got["moments"][n] == _codes(mspec, names), n
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_every_leaf_carries_the_reference_placements(mesh, sharded_runs):
+    shape, names = MESHES[mesh]
+    got = sharded_runs(mesh)["1-False"]
+    _assert_reference_placements(got, ARCH, {}, shape, names)
     if "pod" in names:      # ZeRO over 'pod' reaches the norms' moments
         assert got["moments"]["blocks.0.attn_norm"][0] == 0
         assert got["placements"]["blocks.0.attn_norm"][0] == -1
@@ -346,3 +419,144 @@ def test_launch_train_model_parallel_under_two_ranks(tmp_path):
     proc = _torchrun(["--steps", "1", "--model-parallel", "3"], tmp_path)
     assert proc.returncode != 0
     assert "does not divide" in proc.stderr
+
+
+# ---------------------------------------------------------------------------
+# the other families
+# ---------------------------------------------------------------------------
+
+#: arch -> config overrides: recurrentgemma at 5 layers, one (rec, rec,
+#: attn) group and a 2-layer tail
+FAMILIES = {"mixtral-8x7b": {}, "mamba2-370m": {},
+            "recurrentgemma-2b": {"n_layers": 5}}
+FAMILY_VARIANTS = [(1, False), (2, True)]
+#: world size -> the meshes its ranks run, (data, model)
+FAMILY_MESHES = {2: [(2, 1), (1, 2)], 4: [(2, 2)]}
+
+
+@pytest.fixture(scope="module")
+def family_runs(tmp_path_factory):
+    """(arch, "DxM") -> the sharded runs of each of FAMILY_VARIANTS: one
+    group of ranks per world size runs every family on its meshes."""
+    out = {}
+    for world, shapes in FAMILY_MESHES.items():
+        out.update(_run_ranks(
+            {"kind": "families", "archs": list(FAMILIES.items()),
+             "shapes": shapes, "variants": FAMILY_VARIANTS}, world,
+            tmp_path_factory.mktemp(f"families{world}")))
+    return out
+
+
+@pytest.fixture(scope="module")
+def family_one_process(tmp_path_factory):
+    cache = {}
+
+    def get(arch, accum, compress):
+        if (arch, accum, compress) not in cache:
+            tc = TrainConfig(
+                lr=LR, warmup_steps=1, total_steps=10, grad_accum=accum,
+                compress_grads=compress, checkpoint_every=1000,
+                checkpoint_dir=str(tmp_path_factory.mktemp("one")))
+            cfg = get_config(arch, smoke=True).with_(**FAMILIES[arch])
+            t = Trainer(cfg, tc, "cpu", BATCH, SEQ)
+            hist = t.run(STEPS, log_every=0)
+            cache[arch, accum, compress] = (hist, {
+                n: p.detach().clone() for n, p in
+                t.model.named_parameters()})
+        return cache[arch, accum, compress]
+    return get
+
+
+@pytest.mark.parametrize("accum,compress", FAMILY_VARIANTS)
+@pytest.mark.parametrize("mesh", ["2x1", "1x2", "2x2"])
+@pytest.mark.parametrize("arch", sorted(FAMILIES))
+def test_family_sharded_step_matches_one_process(
+        arch, mesh, accum, compress, family_runs, family_one_process):
+    """mixtral runs tensor parallel on each expert's F where 'model' has
+    two ranks (routing and dispatch replicated); mamba2
+    (``tensor_parallel=False``) and recurrentgemma (one kv head) run
+    gathered over 'model'.  Each within the tolerances above of one
+    process."""
+    got = family_runs[arch, mesh][f"{accum}-{compress}"]
+    _assert_matches(got, *family_one_process(arch, accum, compress))
+    assert got["tp"] == (arch == "mixtral-8x7b" and mesh.endswith("x2"))
+
+
+@pytest.mark.parametrize("mesh", ["2x1", "1x2", "2x2"])
+@pytest.mark.parametrize("arch", sorted(FAMILIES))
+def test_family_leaves_carry_the_reference_placements(arch, mesh,
+                                                      family_runs):
+    """Including the MoE experts' ``_MOE_3D`` rule (experts replicated,
+    F over 'model', D over 'data'), the ssm's placements without 'model'
+    and the hybrid's ``groups`` stacks and ``tail`` layers."""
+    shape = tuple(int(d) for d in mesh.split("x"))
+    got = family_runs[arch, mesh]["1-False"]
+    _assert_reference_placements(got, arch, FAMILIES[arch], shape,
+                                 ("data", "model"))
+    if arch == "mixtral-8x7b" and mesh == "2x2":
+        assert got["placements"]["blocks.0.w_gate"] == [1, 2]
+        assert got["placements"]["blocks.0.w_down"] == [2, 1]
+
+
+def test_hybrid_checkpoint_restores_across_meshes_bit_equal(tmp_path):
+    """recurrentgemma at 5 layers: written under (2, 1), restored under
+    (1, 2), every parameter and moment bit for bit."""
+    out = _run_ranks({"kind": "ckpt", "arch": "recurrentgemma-2b",
+                      "over": FAMILIES["recurrentgemma-2b"]}, 2, tmp_path)
+    assert out["step"] == STEPS
+    (p_a, mu_a), (p_b, mu_b) = out["saved"], out["restored"]
+    assert set(p_a) == set(p_b) and "blocks.4.w_gate" in p_a
+    for n in p_a:
+        assert torch.equal(p_a[n], p_b[n]), n
+        assert torch.equal(mu_a[n], mu_b[n]), n
+
+
+def _explicit_batches(cfg) -> list:
+    """STEPS seeded batches of the vlm's (tokens after ``vision``) or the
+    audio's (``frames`` and ``labels``) inputs."""
+    out = []
+    for i in range(STEPS):
+        rng = np.random.default_rng(i)
+        if cfg.family == "audio":
+            b = {"frames": rng.normal(size=(BATCH, SEQ, cfg.frontend_dim)),
+                 "labels": rng.integers(0, cfg.vocab_size, (BATCH, SEQ))}
+        else:
+            b = {"tokens": rng.integers(0, cfg.vocab_size, (BATCH, SEQ)),
+                 "vision": rng.normal(size=(BATCH, cfg.vision_tokens,
+                                            cfg.d_model))}
+        out.append({k: torch.from_numpy(v).float() if v.dtype == np.float64
+                    else torch.from_numpy(v) for k, v in b.items()})
+    return out
+
+
+@pytest.mark.parametrize("arch,shape", [("internvl2-76b", (1, 2)),
+                                        ("internvl2-76b", (2, 1)),
+                                        ("hubert-xlarge", (1, 2))])
+def test_sharded_step_trains_vlm_and_audio_batches(arch, shape, tmp_path):
+    """``make_sharded_train_step`` on explicit batches (the Trainer's
+    token pipeline makes neither input): internvl2 tensor parallel at
+    model 2 (the patch embeddings enter replicated before the split
+    lookup, the loss on the gathered text logits) and on (2, 1); hubert
+    gathered over 'model'.  Within the tolerances above of the
+    one-device ``make_train_step``."""
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import make_train_step
+    cfg = get_config(arch, smoke=True)
+    batches = _explicit_batches(cfg)
+    torch.save(batches, tmp_path / "batches.pt")
+    got = _run_ranks({"kind": "explicit", "arch": arch, "shape": shape,
+                      "names": ("data", "model"),
+                      "batches": str(tmp_path / "batches.pt")},
+                     int(np.prod(shape)), tmp_path)
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    step = make_train_step(cfg, TrainConfig(lr=LR, warmup_steps=1,
+                                            total_steps=10))
+    opt = adamw_init(dict(model.named_parameters()))
+    hist = []
+    for b in batches:
+        model, opt, m = step(model, opt, b)
+        hist.append({k: float(v) for k, v in m.items()})
+    _assert_matches(got, hist, {n: p.detach() for n, p in
+                                model.named_parameters()})
+    assert got["tp"] == (arch == "internvl2-76b" and shape[1] == 2)
