@@ -100,7 +100,7 @@ one-rank (1, 1) mesh.
 Output, one JSON object per line: ``env``, ``build``, ``parity``,
 ``main_path``, ``timing``, ``engine``, ``sharded_serving``, ``xnor``,
 ``flow``, ``calibrate``, ``frontdoor``, ``warm_start``, ``quickstart``,
-``logic_ffn``, ``lm``, ``train_full``, ``train_parity``,
+``logic_ffn``, ``lm``, ``train_full``, ``dryrun``, ``train_parity``,
 ``sharded_train``, ``logic_swap_train``, ``families`` and
 ``train_families`` (one line per model and a last one with the phase's
 kernel launches); then the
@@ -218,6 +218,13 @@ TRAIN_ARCH = "minicpm-2b"
 TRAIN_FULL = dict(steps=6, global_batch=8, seq_len=512, grad_accum=2)
 TRAIN_DESCENT_STEPS, TRAIN_DESCENT_LR = 4, 3e-4
 BF16_FLOPS_PER_S = 989e12
+# the dry run (repro_torch.launch.dryrun): qwen3-8b's train_4k and
+# decode_32k cells at pod1 (a fake 256-rank group, fake CUDA tensors) in
+# subprocesses, held against the results the CPU's fake tensors gave
+# (results/dryrun_torch); and train_full's own cell (TRAIN_FULL on one
+# rank) held against the step train_full ran on the card
+DRYRUN_CELLS = (("qwen3-8b", "train_4k"), ("qwen3-8b", "decode_32k"))
+DRYRUN_FLOPS_RTOL = 1e-6
 # full width at 2 layers in float32 (TF32 off): one step on the card
 # against the same step on the CPU, then resume against an unbroken run
 TRAIN_PARITY = dict(n_layers=2, global_batch=2, seq_len=128, grad_accum=2,
@@ -787,6 +794,7 @@ def run(args, torch) -> None:
     lffn = logic_ffn_phase(args, torch, dev, smi, cuda_ms)
     lm_phase(args, torch, dev, smi)
     full = train_full_phase(args, torch, dev, smi)
+    dryrun_phase(smi, full)
     train_parity_phase(args, torch, dev, smi)
     sharded_train_phase(args, torch, dev, smi, full)
     lswap = logic_swap_train_phase(args, torch, dev, smi, cuda_ms)
@@ -2614,6 +2622,13 @@ def train_full_phase(args, torch, dev, smi) -> dict:
         batch = trainer.batch(trainer.step)
         out["profiled_step"] = profile_step(
             torch, lambda: trainer.train_step(model, opt, batch))
+        # one more step under the FLOP counter, for the dry run's
+        # prediction of this cell (dryrun_phase)
+        from torch.utils.flop_counter import FlopCounterMode
+        counter = FlopCounterMode(display=False)
+        with counter:
+            trainer.train_step(model, opt, batch)
+        out["counted_step"] = {"flops": counter.get_total_flops()}
         trainer.opt = opt = None            # the descent starts afresh
 
         mb = {"tokens": batch["tokens"][:tf["global_batch"] //
@@ -2658,6 +2673,125 @@ def train_full_phase(args, torch, dev, smi) -> dict:
           "train_full: the final checkpoint was written")
     del trainer, model, opt, params
     torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_phase(smi, full: dict) -> dict:
+    """The dry run on the card's PyTorch (``repro_torch.launch.dryrun``).
+    Each of DRYRUN_CELLS through the launcher in its own subprocess (a
+    fake 256-rank group, fake CUDA tensors, both started together), its
+    seconds and its numbers beside the committed ones the CPU's fake
+    tensors gave (``results/dryrun_torch``).  Meanwhile train_full's own
+    cell (minicpm-2b, TRAIN_FULL's batch and micro-batches, one rank)
+    predicted in this process (fake CUDA tensors; the CPU's where
+    PyTorch is built without CUDA, ``dryrun.fake_device``).  Gated: each
+    cell ``ok``, its FLOPs and collective bytes equal to the CPU's; the
+    prediction's FLOPs equal to those the FLOP counter saw in
+    train_full's step on the card within DRYRUN_FLOPS_RTOL.  Reported:
+    the card's peak memory over the predicted peak, and the roofline's
+    bound over train_full's step p50 (its share of the bound)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.registry import ShapeCell
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import roofline as rf
+
+    out = {"phase": "dryrun", "nvidia_smi": smi, "constants":
+           dryrun.CONSTANTS}
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(SRC), env.get("PYTHONPATH")) if p)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dryrun_",
+                                     dir=scratch_dir()) as d:
+        procs = {}
+        for arch, shape in DRYRUN_CELLS:
+            procs[arch, shape] = (time.perf_counter(), subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", arch, "--shape", shape, "--mesh", "pod1",
+                 "--out", d], env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        try:
+            cfg = get_config(TRAIN_ARCH)
+            tf = TRAIN_FULL
+            cell = ShapeCell("train_full", "train", tf["seq_len"],
+                             tf["global_batch"])
+            t0 = time.perf_counter()
+            device = dryrun.fake_device("cuda")
+            with dryrun.fake_group(1):
+                mesh = init_device_mesh(device, (1, 1),
+                                        mesh_dim_names=("data", "model"))
+                pred = dryrun.measure_cell(cfg, cell, mesh, device=device,
+                                           train_accum=tf["grad_accum"])
+            pred_s = time.perf_counter() - t0
+            cells = {}
+            for (arch, shape), (t0, proc) in procs.items():
+                log, _ = proc.communicate(timeout=900)
+                name = f"{arch}__{shape}__pod1.json"
+                res = json.loads((Path(d) / name).read_text())
+                cpu = json.loads((dryrun.RESULTS_DIR / name).read_text())
+                cells[f"{arch}/{shape}"] = {
+                    "exit": proc.returncode,
+                    "wall_s": time.perf_counter() - t0,
+                    "log": log.strip().splitlines()[-2:],
+                    **{k: res.get(k) for k in (
+                        "ok", "device", "seconds", "tensor_parallel",
+                        "kv_share", "flops_per_device",
+                        "flops_over_model_flops_per_chip", "fits_h100",
+                        "error")},
+                    "peak_bytes": res.get("memory", {}).get("peak_bytes"),
+                    "roofline": {k: res.get("roofline", {}).get(k) for k in
+                                 ("compute_s", "memory_s", "collective_s",
+                                  "bound", "collective_breakdown")},
+                    "vs_cpu": {"device": cpu["device"], **{
+                        k: res.get(k) == cpu.get(k) for k in (
+                            "flops_per_device", "collective_counts")},
+                        "collectives": res.get("roofline", {}).get(
+                            "collective_breakdown") ==
+                        cpu["roofline"]["collective_breakdown"],
+                        "bytes": res.get("roofline", {}).get(
+                            "bytes_per_device") ==
+                        cpu["roofline"]["bytes_per_device"],
+                        "peak": res.get("memory", {}).get("peak_bytes") ==
+                        cpu["memory"]["peak_bytes"]}}
+        finally:
+            for _, proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    out["cells"] = cells
+    terms = rf.roofline_from_terms(
+        flops_per_device=pred["flops"], bytes_per_device=pred["bytes"],
+        collective_breakdown=pred["collectives"], chips=1,
+        model_flops_total=6 * cfg.param_count() * tf["global_batch"] *
+        tf["seq_len"])
+    bound_s = max(terms.compute_s, terms.memory_s, terms.collective_s)
+    counted = full["counted_step"]["flops"]
+    tr = full["train"]
+    out["train_full_cell"] = {
+        "model": cfg.name, **tf, "predict_s": pred_s,
+        "predicted_flops": pred["flops"], "card_flops": counted,
+        "flops_rel_err": abs(pred["flops"] - counted) / counted,
+        "predicted_peak_bytes": pred["peak_bytes"],
+        "predicted_argument_bytes": pred["argument_bytes"],
+        "card_max_memory_allocated": tr["max_memory_allocated"],
+        "memory_ratio": tr["max_memory_allocated"] / pred["peak_bytes"],
+        "roofline": terms.to_dict(), "bound_s": bound_s,
+        "step_s_p50": tr["step_s_p50"],
+        "share_of_bound": bound_s / tr["step_s_p50"],
+        "compute_share": terms.compute_s / tr["step_s_p50"]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    for name, c in cells.items():
+        check(c["exit"] == 0 and c["ok"],
+              f"dryrun: {name} ran ok: {c['log']} {c.get('error')}")
+        check(c["vs_cpu"]["flops_per_device"] and c["vs_cpu"]["collectives"],
+              f"dryrun: {name}'s FLOPs and collective bytes on fake CUDA "
+              f"tensors equal the CPU's: {c['vs_cpu']}")
+    check(out["train_full_cell"]["flops_rel_err"] <= DRYRUN_FLOPS_RTOL,
+          "dryrun: the predicted FLOPs of train_full's step equal the "
+          f"card's count: {pred['flops']} vs {counted}")
     return out
 
 

@@ -1,8 +1,9 @@
 # ARCH_IDS, get_config, ShapeCell, SHAPES, cell_supported and all_cells
 # copied from src/repro/configs/registry.py; _MODULES names this package's
-# config modules.  input_specs (the dry run's jax.ShapeDtypeStruct
-# stand-ins) waits for the port of launch/dryrun.
-"""Architecture registry + assigned shape cells.
+# config modules, and input_specs returns meta tensors where the reference
+# returns jax.ShapeDtypeStruct stand-ins (its changed lines are listed in
+# tests/test_torch_compiler_copy.py).
+"""Architecture registry + assigned shape cells + input specs.
 
 Shapes (assignment spec):
   train_4k     seq 4,096  x global_batch 256  (training; lowers train_step)
@@ -17,6 +18,8 @@ from __future__ import annotations
 
 import importlib
 from dataclasses import dataclass
+
+import torch
 
 from repro_torch.models.config import ModelConfig
 
@@ -72,3 +75,40 @@ def all_cells(smoke: bool = False):
         for shape in SHAPES:
             ok, reason = cell_supported(cfg, shape)
             yield arch, shape, ok, reason
+
+
+def _meta(shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+    """A tensor of ``shape`` and ``dtype`` with no storage."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: str, scaled_batch: int | None = None
+                ) -> dict:
+    """``meta`` tensor stand-ins for every model input of the step fn.
+
+    For decode cells this is the token batch only — the cache is part of the
+    step signature and its specs come from ``serve.init_decode_cache`` on
+    the ``meta`` device (no allocation).
+    """
+    cell = SHAPES[shape]
+    b = scaled_batch or cell.global_batch
+    s = cell.seq_len
+    i32 = torch.int32
+    cdt = {"bfloat16": torch.bfloat16, "float32": torch.float32}[
+        cfg.compute_dtype]
+    if cell.kind in ("train", "prefill"):
+        if cfg.family == "audio":
+            specs = {"frames": _meta(
+                (b, s, cfg.frontend_dim), cdt)}
+            if cell.kind == "train":
+                specs["labels"] = _meta((b, s), i32)
+            return specs
+        if cfg.family == "vlm":
+            n_vis = cfg.vision_tokens
+            return {
+                "tokens": _meta((b, s - n_vis), i32),
+                "vision": _meta((b, n_vis, cfg.d_model), cdt),
+            }
+        return {"tokens": _meta((b, s), i32)}
+    # decode: one new token; the KV/state cache carries seq_len context
+    return {"tokens": _meta((b, 1), i32)}

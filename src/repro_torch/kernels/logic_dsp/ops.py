@@ -39,11 +39,16 @@ WORD_BITS = 32
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller names the
-    CPU.  Raises when CUDA is asked for (or defaulted to) and absent."""
+    CPU.  Raises when CUDA is asked for (or defaulted to) and absent,
+    except under a ``FakeTensorMode``, whose tensors have no storage."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     if dev.type == "cuda":
+        from torch._guards import detect_fake_mode
+        if detect_fake_mode() is not None:
+            # fake tensors (the dry run) hold no storage: no card needed
+            return dev if dev.index is not None else torch.device("cuda", 0)
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device is available; pass device='cpu' to run the "

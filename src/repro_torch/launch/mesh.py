@@ -90,6 +90,15 @@ def _world() -> int:
     return dist.get_world_size()
 
 
+def _mesh_device_type(device) -> str:
+    """The mesh's device type: ``resolve_device``'s, or over a ``fake``
+    group (the dry run's: no tensor has storage, no card is needed) the
+    type named, CUDA unless ``"cpu"``."""
+    if dist.get_backend() == "fake":
+        return torch.device("cuda" if device is None else device).type
+    return resolve_device(device).type
+
+
 def make_production_mesh(*, multi_pod: bool = False, device=None):
     """The production mesh: (data 16, model 16), or (pod 2, data 16,
     model 16) with ``multi_pod``, over a group of exactly that many
@@ -103,7 +112,7 @@ def make_production_mesh(*, multi_pod: bool = False, device=None):
     if world != n:
         raise RuntimeError(f"mesh {shape} needs {n} ranks, the process "
                            f"group has {world}")
-    return init_device_mesh(resolve_device(device).type, shape,
+    return init_device_mesh(_mesh_device_type(device), shape,
                             mesh_dim_names=axes)
 
 
@@ -115,6 +124,6 @@ def make_host_mesh(model: int = 1, device=None):
         raise ValueError(f"--model-parallel {model} does not divide the "
                          f"process group's {world} ranks: no (data, model) "
                          f"mesh of that size exists")
-    return init_device_mesh(resolve_device(device).type,
+    return init_device_mesh(_mesh_device_type(device),
                             (world // model, model),
                             mesh_dim_names=("data", "model"))

@@ -376,12 +376,7 @@ class Transformer(nn.Module):
             frames = torch.as_tensor(frames, device=self.device)
             x = frames.to(cdt) @ self.frontend_proj.to(cdt)
         else:
-            tokens = torch.as_tensor(tokens, device=self.device)
-            # the lookup as F.embedding: the same rows, and a backward
-            # that sums each row's gradient in a fixed order (indexing's
-            # accumulating backward does not)
-            x = F.embedding(tokens, self.embed.to(cdt)) if self.tp is None \
-                else self.tp.embed(tokens, self.embed.to(cdt))
+            x = self.lookup(tokens)
             if vlm:
                 vision = torch.as_tensor(vision, device=self.device)
                 x = torch.cat([vision.to(cdt), x], dim=1)
@@ -390,13 +385,33 @@ class Transformer(nn.Module):
                                  device=self.device)[None].expand(b, s)
         return x, positions
 
+    def lookup(self, tokens) -> torch.Tensor:
+        """The embedding rows of ``tokens`` in the compute dtype.  Under
+        tensor parallelism the table is this rank's block: of the
+        vocabulary (the training layout; ``TensorParallel.embed``), or of
+        ``d_model`` (the decode layout, ``param_pspecs(decode=True)``: the
+        columns looked up here and gathered)."""
+        tokens = torch.as_tensor(tokens, device=self.device)
+        table = self.embed.to(_cdtype(self.cfg))
+        if self.tp is not None and table.shape[0] != self.cfg.padded_vocab:
+            return self.tp.embed(tokens, table)
+        # the lookup as F.embedding: the same rows, and a backward that
+        # sums each row's gradient in a fixed order (indexing's
+        # accumulating backward does not)
+        x = F.embedding(tokens, table)
+        if self.tp is not None and table.shape[1] != self.cfg.d_model:
+            x = self.tp.gather_last(x)
+        return x
+
     def forward(self, tokens: torch.Tensor | None = None,
                 ffn_inputs: list | None = None, *, frames=None,
-                vision=None) -> torch.Tensor:
+                vision=None, gather: bool = True) -> torch.Tensor:
         """Logits (B, S, padded_vocab) in float32 (for vlm, S counts the
         vision tokens first).  ``ffn_inputs``, when given, collects each
         block's FFN input (B, S, D) in order (ssm blocks have none), and
-        turns remat off: a recomputed block would collect twice."""
+        turns remat off: a recomputed block would collect twice.  Under
+        tensor parallelism ``gather=False`` leaves the logits split by
+        vocabulary, this rank's columns (:meth:`lm_logits`)."""
         x, positions = self.embed_inputs(tokens, frames=frames,
                                          vision=vision)
         remat = _REMAT.get(self.cfg.remat) if (
@@ -412,22 +427,36 @@ class Transformer(nn.Module):
                 x = remat(blk, x, positions)
             x = constrain(x, "dp", seq_ax, None)
         x = rms_norm(x, self.final_norm)
-        return self.lm_logits(x)
+        return self.lm_logits(x, gather)
 
-    def lm_logits(self, x: torch.Tensor) -> torch.Tensor:
+    def lm_logits(self, x: torch.Tensor, gather: bool = True
+                  ) -> torch.Tensor:
         """(..., D) -> (..., padded_vocab) float32 logits, the pad columns
-        past ``vocab_size`` at -1e30."""
+        past ``vocab_size`` at -1e30; under tensor parallelism with a head
+        split by vocabulary and ``gather=False``, this rank's block of
+        the columns."""
         if self.cfg.family == "audio":
             head = self.head
         elif self.cfg.tie_embeddings:
             head = self.embed.T
         else:
             head = self.lm_head
-        if self.tp is None:
+        if self.tp is None or head.shape == (self.cfg.d_model,
+                                             self.cfg.padded_vocab):
             logits = (x @ head.to(x.dtype)).float()
+        elif head.shape[0] != self.cfg.d_model:
+            # the tied head of a d_model-split table: a partial product of
+            # this rank's columns of x, summed over the group
+            n = head.shape[0]
+            xr = x[..., self.tp.rank * n:(self.tp.rank + 1) * n]
+            logits = self.tp.exit(xr @ head.to(x.dtype)).float()
         else:
-            logits = self.tp.gather_last(
-                (self.tp.enter(x) @ head.to(x.dtype)).float())
+            logits = (self.tp.enter(x) @ head.to(x.dtype)).float()
+            n = logits.shape[-1]
+            pad = self.cfg.vocab_size - self.tp.rank * n
+            if pad < n:
+                logits[..., max(pad, 0):] = -1e30
+            return self.tp.gather_last(logits) if gather else logits
         if self.cfg.padded_vocab != self.cfg.vocab_size:
             logits[..., self.cfg.vocab_size:] = -1e30
         spec = ["dp"] + [None] * (logits.ndim - 2) + ["model"]
@@ -450,17 +479,21 @@ def train_loss(model: Transformer, batch: dict) -> torch.Tensor:
     ``frames``' logits against ``labels`` (B, S); for vlm the next-token
     loss of the text after the ``vision`` embeddings; otherwise the mean
     next-token cross-entropy of ``tokens`` (B, S), the logits at 0..S-2
-    against the tokens at 1..S-1."""
+    against the tokens at 1..S-1.  Under tensor parallelism it runs on
+    the logits split by vocabulary (``TensorParallel.vocab_xent``)."""
     cfg = model.cfg
     logits = model(batch.get("tokens"), frames=batch.get("frames"),
-                   vision=batch.get("vision"))
+                   vision=batch.get("vision"), gather=False)
+    # under tensor parallelism the logits stay split by vocabulary
+    xent = softmax_xent if logits.shape[-1] == cfg.padded_vocab else \
+        model.tp.vocab_xent
     if cfg.family == "audio":
         labels = torch.as_tensor(batch["labels"], device=model.device)
-        return softmax_xent(logits, labels)
+        return xent(logits, labels)
     tokens = torch.as_tensor(batch["tokens"], device=model.device)
     if cfg.family == "vlm":
         logits = logits[:, batch["vision"].shape[1]:]
-    return softmax_xent(logits[:, :-1], tokens[:, 1:])
+    return xent(logits[:, :-1], tokens[:, 1:])
 
 
 @torch.no_grad()

@@ -67,35 +67,41 @@ def _check_decoder(cfg: ModelConfig) -> None:
         raise ValueError(f"{cfg.name} is encoder-only: no decode")
 
 
-def init_decode_cache(cfg: ModelConfig, batch: int, context: int,
-                      device=None) -> DecodeCache:
-    """An empty cache on ``device`` (CUDA unless ``"cpu"``; the model's
-    device for :func:`decode_step`).  Refuses an encoder."""
+def decode_cache_shapes(cfg: ModelConfig, batch: int, context: int
+                        ) -> dict:
+    """The shape and dtype of each tensor of a :class:`DecodeCache`, by
+    field (the fields the family's cache holds).  Refuses an encoder."""
     _check_decoder(cfg)
-    device = resolve_device(device)
     dt = _cdtype(cfg)
     kinds = layer_kinds(cfg)
     n_attn = sum(1 for k in kinds if k in ("dense", "moe"))
     n_ssm, n_rec = kinds.count("ssm"), kinds.count("rec")
-
-    def zeros(*shape, dtype=dt):
-        return torch.zeros(shape, dtype=dtype, device=device)
-
-    kw = {}
+    out = {}
     if n_attn:
         shape = (n_attn, batch, cache_capacity(cfg, context),
                  cfg.n_kv_heads, cfg.resolved_head_dim)
-        kw["kv_k"], kw["kv_v"] = zeros(*shape), zeros(*shape)
+        out["kv_k"] = out["kv_v"] = (shape, dt)
     if n_ssm:
         d_in, nh, p, n = mamba2.ssm_dims(cfg)
-        kw["ssm_state"] = zeros(n_ssm, batch, nh, p, n, dtype=torch.float32)
-        kw["conv_carry"] = zeros(n_ssm, batch, cfg.ssm_conv_width - 1,
-                                 d_in + 2 * n)
+        out["ssm_state"] = ((n_ssm, batch, nh, p, n), torch.float32)
+        out["conv_carry"] = ((n_ssm, batch, cfg.ssm_conv_width - 1,
+                              d_in + 2 * n), dt)
     if n_rec:
         d_rnn = cfg.n_heads * cfg.resolved_head_dim
-        kw["rec_h"] = zeros(n_rec, batch, d_rnn, dtype=torch.float32)
-        kw["rec_conv"] = zeros(n_rec, batch, cfg.ssm_conv_width - 1, d_rnn)
-    return DecodeCache(**kw)
+        out["rec_h"] = ((n_rec, batch, d_rnn), torch.float32)
+        out["rec_conv"] = ((n_rec, batch, cfg.ssm_conv_width - 1, d_rnn),
+                           dt)
+    return out
+
+
+def init_decode_cache(cfg: ModelConfig, batch: int, context: int,
+                      device=None) -> DecodeCache:
+    """An empty cache on ``device`` (CUDA unless ``"cpu"``; the model's
+    device for :func:`decode_step`).  Refuses an encoder."""
+    shapes = decode_cache_shapes(cfg, batch, context)
+    device = resolve_device(device)
+    return DecodeCache(**{k: torch.zeros(shape, dtype=dt, device=device)
+                          for k, (shape, dt) in shapes.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -165,7 +171,7 @@ def decode_step(model: Transformer, tokens: torch.Tensor,
     advanced by one token)."""
     cfg = model.cfg
     tokens = torch.as_tensor(tokens, device=model.device)
-    x = constrain(model.embed.to(_cdtype(cfg))[tokens], "dp", None, None)
+    x = constrain(model.lookup(tokens), "dp", None, None)
     ia = iss = irec = 0
     for blk in model.blocks:
         if blk.kind == "ssm":

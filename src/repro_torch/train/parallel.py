@@ -16,13 +16,17 @@ explicit, around the one-device step's arithmetic:
     dense, vlm and moe families' heads, FFN units (each expert's) and
     vocabulary split into whole blocks; ``models/tensor_parallel.py``),
     and is gathered too otherwise: the ssm (``tensor_parallel=False``),
-    the hybrid (one kv head) and audio (its GeLU MLP), which gives the
-    reference's result either way.  On a mesh dim of one rank nothing
-    moves: on a (1, 1) mesh the model's parameters are the DTensors' own
-    local tensors.
+    the hybrid (its recurrent blocks) and audio (its GeLU MLP), which
+    gives the reference's result either way.  Where 'model' has more
+    ranks than the model kv heads, ranks share a head: each gathers its
+    head's columns from the ranks storing them.  On a mesh dim of one
+    rank nothing moves: on a (1, 1) mesh the model's parameters are the
+    DTensors' own local tensors.
   * **Batch.**  Each rank runs its rows of the global batch
     (``sharding.batch_pspec``: the rows split over the batch axes, mesh
-    order major first), with the one-device step's micro-batch loop.
+    order major first; 'model' is one of them for a config with
+    ``tensor_parallel=False``, the reference's pure data parallelism),
+    with the one-device step's micro-batch loop.
   * **Reduce.**  The loss and each gradient are all-reduced over the
     batch axes and divided by their number of shards, so they are the
     global batch's mean; the gradients then keep this rank's block of
@@ -45,6 +49,7 @@ step's every operation in the same order.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
@@ -52,7 +57,8 @@ from torch.distributed.tensor import Replicate
 
 from repro_torch.models.pspec_utils import (NamedPlacements, equivalent,
                                             mesh_axes, move, shard)
-from repro_torch.models.tensor_parallel import PARTIAL_GRADS, TensorParallel
+from repro_torch.models.tensor_parallel import (KV_WEIGHTS, PARTIAL_GRADS,
+                                               TensorParallel)
 from repro_torch.models.transformer import Transformer
 from repro_torch.optim import AdamWState, adamw_update
 from repro_torch.train.sharding import (batch_pspec, moment_placements,
@@ -64,8 +70,10 @@ def model_parallel(cfg, mesh) -> TensorParallel | None:
     tensor parallel over it: a 'model' dim of more than one rank,
     ``cfg.tensor_parallel``, and ``TensorParallel.fits`` (a dense, vlm or
     moe model whose heads, FFN units and vocabulary split into whole
-    blocks).  None otherwise (the parameters are then gathered over
-    'model' too, and every rank of the group runs the same rows)."""
+    blocks, the kv heads split or shared).  Where ranks share kv heads,
+    their groups are made here, every rank making every group in the same
+    order.  None otherwise (the parameters are then gathered over 'model'
+    too, and every rank of the group runs the same rows)."""
     names = mesh.mesh_dim_names
     if "model" not in names:
         return None
@@ -73,15 +81,35 @@ def model_parallel(cfg, mesh) -> TensorParallel | None:
     if size == 1 or not cfg.tensor_parallel or \
             not TensorParallel.fits(cfg, size):
         return None
-    return TensorParallel(mesh.get_group("model"),
-                          mesh.get_local_rank("model"), size)
+    rank = mesh.get_local_rank("model")
+    share = TensorParallel.kv_share_of(cfg, size)
+    kv_group = None
+    if share > 1:
+        # every 'model' group of the mesh, split into runs of `share`; the
+        # mesh spans the group in row-major order, as init_device_mesh
+        # lays it out (in numpy: under a FakeTensorMode the mesh's own
+        # rank tensor is fake)
+        ranks = np.moveaxis(np.arange(mesh.size()).reshape(mesh.shape),
+                            names.index("model"), -1).reshape(-1, size)
+        mine = dist.get_process_group_ranks(mesh.get_group("model"))
+        if sorted(mine) not in ranks.tolist():
+            raise ValueError("tensor parallelism with shared kv heads needs "
+                             "a row-major mesh over the whole group")
+        kv_group, _ = dist.new_subgroups_by_enumeration(
+            [sorted(int(r) for r in row[i:i + share])
+             for row in ranks for i in range(0, size, share)])
+    return TensorParallel(mesh.get_group("model"), rank, size, kv_group,
+                          share)
 
 
-def batch_rows(mesh, batch_size: int) -> tuple[slice, tuple, int]:
+def batch_rows(mesh, batch_size: int, include_model: bool = False
+               ) -> tuple[slice, tuple, int]:
     """(this rank's rows of a global batch, the mesh dims they are split
     over, the number of row blocks), as ``batch_pspec`` lays the batch
-    out."""
-    spec = batch_pspec(mesh_axes(mesh), batch_size, 2)[0]
+    out: over 'pod' and 'data', and over 'model' too with
+    ``include_model`` (the pure data parallelism of a config with
+    ``tensor_parallel=False``)."""
+    spec = batch_pspec(mesh_axes(mesh), batch_size, 2, include_model)[0]
     axes = () if spec is None else (spec,) if isinstance(spec, str) \
         else tuple(spec)
     sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
@@ -98,11 +126,14 @@ class ShardedModel:
     """A model's parameters as DTensors on ``mesh`` (``params``, by name),
     and ``module``, the model the step runs, whose parameters are the
     gathered blocks (:meth:`gather`).  Built from a model every rank
-    initialized whole from the same seed, each rank keeping its blocks."""
+    initialized whole from the same seed, each rank keeping its blocks.
+    ``decode`` lays the parameters out as the reference's decode step
+    does (``param_placements(decode=True)``: the embedding split by
+    ``d_model`` over 'model')."""
 
-    def __init__(self, model: Transformer, mesh):
+    def __init__(self, model: Transformer, mesh, decode: bool = False):
         self.module, self.mesh, self.cfg = model, mesh, model.cfg
-        self.param_pl = param_placements(self.cfg, mesh)
+        self.param_pl = param_placements(self.cfg, mesh, decode=decode)
         self.moment_pl = moment_placements(self.cfg, mesh)
         self.tp = model_parallel(self.cfg, mesh)
         self.compute_pl = {
@@ -126,14 +157,21 @@ class ShardedModel:
         setattr(self.module.get_submodule(mod) if mod else self.module,
                 leaf, nn.Parameter(t, requires_grad=True))
 
+    def _kv(self, name: str) -> bool:
+        """Whether ``name`` is a kv projection whose head ranks share."""
+        return self.tp is not None and self.tp.kv_share > 1 and \
+            name.rpartition(".")[2] in KV_WEIGHTS
+
     @torch.no_grad()
     def gather(self) -> None:
         """Give the module each parameter's blocks in the layout the step
         runs (gathered over 'pod' and 'data', and over 'model' unless
-        tensor parallel)."""
+        tensor parallel; a shared kv head's columns gathered in its
+        ``kv_group``)."""
         for n, dt in self.params.items():
-            self._set(n, move(dt.to_local(), self.mesh, self.param_pl[n],
-                              self.compute_pl[n]))
+            t = move(dt.to_local(), self.mesh, self.param_pl[n],
+                     self.compute_pl[n])
+            self._set(n, self.tp.gather_kv(t) if self._kv(n) else t)
 
     def init_opt(self, moment_dtype) -> AdamWState:
         """Zero AdamW moments with ``moment_placements``."""
@@ -168,11 +206,15 @@ class ShardedModel:
     def reduce(self, loss, grads: dict, axes: tuple, n: int):
         """Sum the loss and gradients over the batch axes, then divide by
         the number of row blocks; under tensor parallelism first sum the
-        partial gradients of :data:`PARTIAL_GRADS` over 'model'."""
+        partial gradients of :data:`PARTIAL_GRADS` over 'model', and a
+        shared kv head's over its ``kv_group``, keeping this rank's
+        columns (the step's layout, ``compute_pl``, after)."""
         if self.tp is not None:
             for k, g in grads.items():
                 if k.rpartition(".")[2] in PARTIAL_GRADS:
                     dist.all_reduce(g, group=self.tp.group)
+            grads = {k: self.tp.reduce_kv(g) if self._kv(k) else g
+                     for k, g in grads.items()}
         if n == 1:
             return loss, grads
         loss = loss.clone()

@@ -273,7 +273,8 @@ class Trainer:
                 raise ValueError(f"the mesh spans {mesh.size()} of the "
                                  f"process group's {dist.get_world_size()} "
                                  "ranks; it must span them all")
-            self.rows = batch_rows(mesh, global_batch)
+            self.rows = batch_rows(mesh, global_batch,
+                                   include_model=not cfg.tensor_parallel)
         self.pipeline = TokenPipeline(cfg.vocab_size, global_batch, seq_len,
                                       seed=tc.seed)
         self.ckpt = CheckpointManager(tc.checkpoint_dir,

@@ -56,6 +56,7 @@ COPIED_DEFS = {
                        "dp_axes", "batch_pspec", "cache_pspecs"),
     "models/pspec_utils": ("activation_sharding", "active_mesh", "dp_axes",
                            "_resolve"),
+    "launch/roofline": ("RooflineTerms", "model_flops"),
 }
 # copies that differ from the reference in these lines alone (reference
 # text -> port text), each definition as a whole; in a module of COPIED
@@ -64,6 +65,39 @@ ADAPTED_DEFS = {
     # the registry imports this package's config modules
     ("configs/registry", "_MODULES"): [
         ('"repro.configs." + a', '"repro_torch.configs." + a')],
+    # the roofline's rates are the H100 SXM's, and its link term NVLink's
+    ("launch/roofline", "PEAK_FLOPS"): [
+        ("PEAK_FLOPS = 197e12       # bf16 / chip",
+         "PEAK_FLOPS = 989e12       # dense bf16 / H100 SXM")],
+    ("launch/roofline", "HBM_BW"): [
+        ("HBM_BW = 819e9            # bytes/s / chip",
+         "HBM_BW = 3.35e12          # bytes/s / H100 SXM (HBM3)")],
+    ("launch/roofline", "_COLLECTIVES"): [   # the HLO parser's comment
+        ('\n\n# e.g. "bf16[16,4096,256]{2,1,0}" or "f32[]"', "")],
+    ("launch/roofline", "roofline_from_terms"): [
+        ("collective_s = coll_bytes / ICI_BW",
+         "collective_s = coll_bytes / LINK_BW")],
+    # meta tensors stand in for jax.ShapeDtypeStruct
+    ("configs/registry", "input_specs"): [
+        ('"""ShapeDtypeStruct stand-ins', '"""``meta`` tensor stand-ins'),
+        ("""its specs come from ``serve.init_decode_cache`` via
+    ``jax.eval_shape`` (no allocation).""",
+         """its specs come from ``serve.init_decode_cache`` on
+    the ``meta`` device (no allocation)."""),
+        ("i32 = jnp.int32", "i32 = torch.int32"),
+        ('{"bfloat16": jnp.bfloat16, "float32": jnp.float32}',
+         '{"bfloat16": torch.bfloat16, "float32": torch.float32}'),
+        ('specs = {"frames": jax.ShapeDtypeStruct(',
+         'specs = {"frames": _meta('),
+        ('specs["labels"] = jax.ShapeDtypeStruct(',
+         'specs["labels"] = _meta('),
+        ('"tokens": jax.ShapeDtypeStruct((b, s - n_vis)',
+         '"tokens": _meta((b, s - n_vis)'),
+        ('"vision": jax.ShapeDtypeStruct(', '"vision": _meta('),
+        ('return {"tokens": jax.ShapeDtypeStruct((b, s), i32)}',
+         'return {"tokens": _meta((b, s), i32)}'),
+        ('return {"tokens": jax.ShapeDtypeStruct((b, 1), i32)}',
+         'return {"tokens": _meta((b, 1), i32)}')],
     # they take the parameters to the host, so torch tensors on the card
     # convert as they are
     ("core/nullanet", "mlp_to_logic_network"): [

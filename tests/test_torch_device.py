@@ -734,3 +734,31 @@ def test_sharded_trainer_on_card_one_rank(cuda, tmp_path):
         dist.destroy_process_group()
         for s, h in saved.items():
             signal.signal(s, h)
+
+
+@pytest.mark.cuda
+def test_dryrun_fake_cuda_and_cpu_count_alike(cuda):
+    """The dry run's fake tensors take CUDA on a card's PyTorch (its
+    default); one rank's counts equal those of the CPU's fake tensors,
+    which the committed results and the CPU tests use.  The peak only
+    differs by ``MemTracker`` rounding each CUDA storage up to the
+    caching allocator's 512-byte blocks (a few KB here)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs.registry import ShapeCell
+    from repro_torch.launch import dryrun
+    cfg = get_config("qwen3-8b", smoke=True)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        for cell in (ShapeCell("t", "train", 16, 8),
+                     ShapeCell("d", "decode", 32, 8)):
+            with dryrun.fake_group(4):
+                mesh = init_device_mesh(dev, (1, 4),
+                                        mesh_dim_names=("data", "model"))
+                out[dev, cell.kind] = dryrun.measure_cell(cfg, cell, mesh,
+                                                          device=dev)
+    for kind in ("train", "decode"):
+        for k in ("flops", "collectives", "bytes", "argument_bytes"):
+            assert out["cuda", kind][k] == out["cpu", kind][k], (kind, k)
+        cpu = out["cpu", kind]["peak_bytes"]
+        assert cpu <= out["cuda", kind]["peak_bytes"] <= 1.01 * cpu, kind

@@ -18,7 +18,8 @@ FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
 # path: optimizer, trainer, checkpoints, launcher and examples, and the
 # MoE, SSM and RG-LRU layers of the other model families, and the
 # sharding rules, meshes, activation constraints, tensor parallelism and
-# sharded step of the sharded trainer)
+# sharded step of the sharded trainer, and the dry run: its roofline and
+# the sharded inference it runs)
 EXPECTED = ("repro_torch.kernels.native", "repro_torch.kernels.xnor_gemm.ops",
             "repro_torch.kernels.xnor_gemm.kernel",
             "repro_torch.kernels.xnor_gemm.ref", "repro_torch.data.synthetic",
@@ -50,7 +51,8 @@ EXPECTED = ("repro_torch.kernels.native", "repro_torch.kernels.xnor_gemm.ops",
             "repro_torch.models.rglru", "repro_torch.train.sharding",
             "repro_torch.launch.mesh", "repro_torch.models.pspec_utils",
             "repro_torch.models.tensor_parallel",
-            "repro_torch.train.parallel")
+            "repro_torch.train.parallel", "repro_torch.launch.roofline",
+            "repro_torch.launch.dryrun", "repro_torch.serve.parallel")
 
 
 def test_package_imports_without_jax_or_reference():

@@ -3,10 +3,12 @@ held against the one-process ``Trainer`` (itself held against the
 reference's jitted step by ``test_torch_train_step.py``), since the
 reference's own sharded trainer fails on the CPU (its ``test_train.py``).
 
-qwen3-8b smoke in float32 on four meshes: (data 2, model 1), (1, 2),
-(2, 2) and (pod 2, data 2, model 1), the (1, 2) and (2, 2) ones running
-the model tensor parallel over 'model'; each with ``grad_accum`` 1 and 2
-and the int8 round trip off and on.  After two steps the loss and the
+qwen3-8b smoke in float32 on five meshes: (data 2, model 1), (1, 2),
+(2, 2), (1, 4) and (pod 2, data 2, model 1), the (1, 2), (2, 2) and
+(1, 4) ones running the model tensor parallel over 'model' (on (1, 4)
+its 2 kv heads fewer than the 4 ranks: each head shared by 2, its
+columns gathered and its gradient summed in their group); each with
+``grad_accum`` 1 and 2 and the int8 round trip off and on.  After two steps the loss and the
 gradient norm of each step agree within rtol 1e-5, and the gathered
 parameters within atol 1e-5.  Adam moves an element by about lr = 1e-3
 whatever its gradient's size, so where a gradient cancels to near zero
@@ -26,8 +28,9 @@ refuses a ``--model-parallel`` that does not divide it.
 The other families on (2, 1), (1, 2) and (2, 2), with ``grad_accum`` 1
 and the round trip off, and 2 with it on, at the same tolerances:
 mixtral-8x7b smoke tensor parallel on each expert's F (its router's
-gradient summed over 'model'), mamba2-370m and recurrentgemma-2b at 5
-layers (one group and a 2-layer tail) gathered over 'model'; their
+gradient summed over 'model'), mamba2-370m purely data parallel (its
+rows split over 'model' too) and recurrentgemma-2b at 5 layers (one
+group and a 2-layer tail) gathered over 'model'; their
 placements (the MoE's ``_MOE_3D``, the hybrid's ``groups`` and ``tail``)
 the reference's, and a hybrid checkpoint restored across meshes bit for
 bit.  internvl2-76b (tensor parallel, its patch embeddings before the
@@ -66,6 +69,7 @@ BATCH, SEQ, STEPS = 8, 16, 2
 MESHES = {"2x1": ((2, 1), ("data", "model")),
           "1x2": ((1, 2), ("data", "model")),
           "2x2": ((2, 2), ("data", "model")),
+          "1x4": ((1, 4), ("data", "model")),
           "pod2x2x1": ((2, 2, 1), ("pod", "data", "model"))}
 VARIANTS = [(1, False), (2, False), (1, True), (2, True)]
 TIMEOUT = 180
@@ -118,6 +122,7 @@ def steps(mesh, variants, sub=""):
             "moments": {n: code(d.placements)
                         for n, d in t.opt.mu.items()},
             "tp": t.model.tp is not None,
+            "kv_share": t.model.tp.kv_share if t.model.tp else 0,
             "rows": [t.rows[0].start, t.rows[0].stop],
         }
     return res
@@ -142,7 +147,8 @@ elif job["kind"] == "explicit":         # make_sharded_train_step
     model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     sm = ShardedModel(model.requires_grad_(True), mesh)
     opt = sm.init_opt(torch.float32)
-    rows = batch_rows(mesh, job["batch"])
+    rows = batch_rows(mesh, job["batch"],
+                      include_model=not cfg.tensor_parallel)
     step = make_sharded_train_step(cfg, TrainConfig(
         lr=1e-3, warmup_steps=1, total_steps=10), rows)
     hist = []
@@ -261,8 +267,11 @@ def test_sharded_step_matches_one_process(mesh, accum, compress,
                                           sharded_runs, one_process):
     got = sharded_runs(mesh)[f"{accum}-{compress}"]
     _assert_matches(got, *one_process(accum, compress))
-    # the model ran tensor parallel exactly where 'model' has two ranks
-    assert got["tp"] == (MESHES[mesh][0][-1] == 2)
+    # the model ran tensor parallel exactly where 'model' has more than
+    # one rank; on (1, 4) its 2 kv heads are each shared by 2 ranks
+    model = MESHES[mesh][0][-1]
+    assert got["tp"] == (model > 1)
+    assert got["kv_share"] == (2 if model == 4 else 1 if model > 1 else 0)
 
 
 @pytest.mark.parametrize("arch,remat", [("minicpm-2b", "none"),
@@ -474,12 +483,16 @@ def test_family_sharded_step_matches_one_process(
         arch, mesh, accum, compress, family_runs, family_one_process):
     """mixtral runs tensor parallel on each expert's F where 'model' has
     two ranks (routing and dispatch replicated); mamba2
-    (``tensor_parallel=False``) and recurrentgemma (one kv head) run
+    (``tensor_parallel=False``) is purely data parallel, its rows split
+    over 'model' too, and recurrentgemma (its recurrent blocks) runs
     gathered over 'model'.  Each within the tolerances above of one
     process."""
     got = family_runs[arch, mesh][f"{accum}-{compress}"]
     _assert_matches(got, *family_one_process(arch, accum, compress))
     assert got["tp"] == (arch == "mixtral-8x7b" and mesh.endswith("x2"))
+    d, m = (int(x) for x in mesh.split("x"))
+    assert got["rows"] == [0, BATCH // (d * m if arch == "mamba2-370m"
+                                        else d)]
 
 
 @pytest.mark.parametrize("mesh", ["2x1", "1x2", "2x2"])
