@@ -65,12 +65,25 @@ Then LM training.  ``train_full``: minicpm-2b at its full config (2.7 B
 parameters, bf16, float32 moments, remat "full", WSD) trained by
 ``launch/train.py``'s Trainer for a few steps of 8 x 512 tokens with a
 checkpoint, one step profiled, then the loss on one fixed batch made to
-fall.  ``train_parity``: the same widths at 2 layers in float32, one step
+fall.  ``dryrun``: the dry run's cells (qwen3-8b train_4k and
+decode_32k, minicpm-2b and recurrentgemma-2b train_4k, the last two split
+over 'model' by sequence and by ``d_rnn``) at pod1 on fake CUDA tensors
+against the committed CPU counts, train_full's step against its
+prediction, and one real rank's share of minicpm-2b train_4k pod1 (16 x
+4,096 tokens at full width under a fake 256-rank group) against its
+predicted peak and roofline bound.  ``train_parity``: the same widths at
+2 layers in float32, one step
 on the card against the CPU, and a resumed run against an unbroken one.
 ``sharded_train``: the sharded trainer on a one-rank NCCL group and its
 (1, 1) mesh, one full-width float32 step against the one-device step and
 every leaf's placements against the rule table, then minicpm-2b at full
-size through the launcher on the mesh.  ``logic_swap_train``: the
+size through the launcher on the mesh.  ``split_parity``: the split over
+'model' held against one device on the card: two gloo ranks on the one
+card on a (1, 2) mesh, in float32, two train steps, prefill (or the
+encoder's forward) and three decode steps of qwen3-8b (heads split, the
+residual stream by sequence), recurrentgemma-2b (its RG-LRU blocks by
+``d_rnn``, its attention sequence parallel) and hubert-xlarge (heads
+and GeLU MLP), at the smoke widths.  ``logic_swap_train``: the
 logic-FFN swap trained with STE, converted and served through K1, with
 its held-out agreement.
 
@@ -101,7 +114,7 @@ Output, one JSON object per line: ``env``, ``build``, ``parity``,
 ``main_path``, ``timing``, ``engine``, ``sharded_serving``, ``xnor``,
 ``flow``, ``calibrate``, ``frontdoor``, ``warm_start``, ``quickstart``,
 ``logic_ffn``, ``lm``, ``train_full``, ``dryrun``, ``train_parity``,
-``sharded_train``, ``logic_swap_train``, ``families`` and
+``sharded_train``, ``split_parity``, ``logic_swap_train``, ``families`` and
 ``train_families`` (one line per model and a last one with the phase's
 kernel launches); then the
 card's name and power limit as nvidia-smi prints them; then a ``kernels``
@@ -219,12 +232,20 @@ TRAIN_FULL = dict(steps=6, global_batch=8, seq_len=512, grad_accum=2)
 TRAIN_DESCENT_STEPS, TRAIN_DESCENT_LR = 4, 3e-4
 BF16_FLOPS_PER_S = 989e12
 # the dry run (repro_torch.launch.dryrun): qwen3-8b's train_4k and
-# decode_32k cells at pod1 (a fake 256-rank group, fake CUDA tensors) in
-# subprocesses, held against the results the CPU's fake tensors gave
-# (results/dryrun_torch); and train_full's own cell (TRAIN_FULL on one
-# rank) held against the step train_full ran on the card
-DRYRUN_CELLS = (("qwen3-8b", "train_4k"), ("qwen3-8b", "decode_32k"))
+# decode_32k cells, minicpm-2b's train_4k (sequence-parallel attention)
+# and recurrentgemma-2b's (tensor-parallel RG-LRU blocks) at pod1 (a fake
+# 256-rank group, fake CUDA tensors) in subprocesses, held against the
+# results the CPU's fake tensors gave (results/dryrun_torch); train_full's
+# own cell (TRAIN_FULL on one rank) held against the step train_full ran
+# on the card; and DRYRUN_SHARE, one rank's share of a pod1 cell run for
+# real on the card under the fake group (its collectives move nothing)
+DRYRUN_CELLS = (("qwen3-8b", "train_4k"), ("qwen3-8b", "decode_32k"),
+                ("minicpm-2b", "train_4k"), ("recurrentgemma-2b",
+                                             "train_4k"))
 DRYRUN_FLOPS_RTOL = 1e-6
+DRYRUN_SHARE = ("minicpm-2b", "train_4k")
+DRYRUN_SHARE_STEPS = 3
+H100_HBM_BYTES = 80e9
 # full width at 2 layers in float32 (TF32 off): one step on the card
 # against the same step on the CPU, then resume against an unbroken run
 TRAIN_PARITY = dict(n_layers=2, global_batch=2, seq_len=128, grad_accum=2,
@@ -240,6 +261,24 @@ SHARD_TIMED_WAVES = 30
 # the one-device step, then minicpm-2b at full size through the launcher
 SHARDED_TRAIN = dict(steps=3, global_batch=8, seq_len=512)
 SHARDED_STEP_RTOL = 1e-6             # loss and grad_norm; params: atol
+# the split over 'model' on the card: SPLIT_WORLD gloo ranks on cuda:0
+# (NCCL takes one card a rank; gloo's CUDA collectives stage through the
+# host, and the DTensor redistributions, which gloo's functional
+# collectives do not take on CUDA tensors, run staged in the ranks) on a
+# (1, SPLIT_WORLD) mesh in float32, TF32 off, at the smoke widths, each
+# case held against one device on the card with the CPU tests'
+# tolerances (tests/test_torch_seq_parallel.py): loss and grad_norm
+# within SPLIT_RTOL; parameters within 4 lr, at most SPLIT_OUTLIERS of
+# them past SPLIT_P_ATOL; served logits within SPLIT_SERVE_TOL
+SPLIT_WORLD = 2
+SPLIT_CASES = {"qwen3-8b": {}, "recurrentgemma-2b": {"n_layers": 5,
+                                                     "n_heads": 3},
+               "hubert-xlarge": {}}
+SPLIT = dict(batch=8, seq=16, steps=2, lr=1e-3, serve_batch=4,
+             serve_seq=20, context=32, decode=3)
+SPLIT_RTOL, SPLIT_P_ATOL, SPLIT_OUTLIERS = 1e-5, 1e-5, 1e-4
+SPLIT_SERVE_TOL = 1e-4
+SPLIT_TIMEOUT = 300
 # the other families at full width, random weights from --seed: per model
 # the layers of each run (its whole depth where it fits; a cut is listed
 # under "reduced"), and the float32 self-consistency run's batch, tokens
@@ -327,6 +366,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=200,
                     help="kernel launches per timing")
+    ap.add_argument("--split-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)    # a split_parity rank
+    ap.add_argument("--split-job", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not (SRC / "repro_torch" / "csrc" / "logic_dsp.cu").is_file():
         print("chip_smoke.py runs from the root of a checkout: "
@@ -338,6 +380,9 @@ def main() -> int:
         print("no CUDA device is available; chip_smoke.py needs one GPU",
               file=sys.stderr)
         return 3
+    if args.split_rank is not None:
+        split_rank(torch, args.split_rank, json.loads(args.split_job))
+        return 0
     run(args, torch)
     return 0
 
@@ -794,9 +839,10 @@ def run(args, torch) -> None:
     lffn = logic_ffn_phase(args, torch, dev, smi, cuda_ms)
     lm_phase(args, torch, dev, smi)
     full = train_full_phase(args, torch, dev, smi)
-    dryrun_phase(smi, full)
+    dryrun_phase(smi, full, torch, dev)
     train_parity_phase(args, torch, dev, smi)
     sharded_train_phase(args, torch, dev, smi, full)
+    split_parity_phase(torch, smi)
     lswap = logic_swap_train_phase(args, torch, dev, smi, cuda_ms)
     families_phase(args, torch, dev, smi)
     train_families_phase(args, torch, dev, smi)
@@ -2676,20 +2722,96 @@ def train_full_phase(args, torch, dev, smi) -> dict:
     return out
 
 
-def dryrun_phase(smi, full: dict) -> dict:
+def dryrun_share(torch, dev, arch: str, shape: str) -> dict:
+    """One rank's share of the pod1 cell ``arch`` x ``shape`` for real on
+    ``dev``: ``dryrun.measure_cell(..., fake=False)``'s two halves (its
+    ``build_step`` with weights from seed 0, then its ``measure``) under a
+    fake 256-rank group on the production mesh, whose collectives move
+    nothing, so the arithmetic and the memory are one rank's at full
+    width.  Then DRYRUN_SHARE_STEPS more steps timed with CUDA events.
+    Beside the committed CPU prediction of the same cell: the card's peak
+    over the predicted peak (and what the card holds before the step
+    against the arguments the prediction counts, and its peak over the
+    timed steps, without the counters), and the step time over the
+    roofline's bound without its collective term (nothing crosses a link
+    here)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.registry import SHAPES
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+
+    cfg, cell = get_config(arch), SHAPES[shape]
+    cpu = json.loads((dryrun.RESULTS_DIR / f"{arch}__{shape}__pod1.json")
+                     .read_text())
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    with dryrun.fake_group(256):
+        mesh = make_production_mesh(multi_pod=False, device=dev.type)
+        step, args, facts = dryrun.build_step(
+            cfg, cell, mesh, device=dev, seed=0,
+            train_accum=dryrun.TRAIN_ACCUM.get(arch, 1))
+        torch.cuda.synchronize(dev)
+        build_s = time.perf_counter() - t0
+        held = torch.cuda.memory_allocated(dev) - base
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        m = dryrun.measure(step, args)
+        torch.cuda.synchronize(dev)
+        measured_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        torch.cuda.reset_peak_memory_stats(dev)
+        times = []
+        for _ in range(DRYRUN_SHARE_STEPS):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            step()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b) / 1e3)
+        timed_peak = torch.cuda.max_memory_allocated(dev) - base
+        del step, args
+    torch.cuda.empty_cache()
+    rl = cpu["roofline"]
+    bound_s = max(rl["compute_s"], rl["memory_s"])
+    step_s = sorted(times)[len(times) // 2]
+    return {"cell": f"{arch}/{shape}/pod1", **facts, "build_s": build_s,
+            "measured_step_s": measured_s, "step_s": times,
+            "step_s_p50": step_s,
+            "flops": m["flops"], "flops_equal_cpu":
+                m["flops"] == cpu["flops_per_device"],
+            "tracked_peak_bytes": m["peak_bytes"],
+            "card_max_memory_allocated": peak,
+            "card_held_bytes": held,
+            "argument_bytes": sum(m["argument_bytes"].values()),
+            "card_timed_peak_bytes": timed_peak,
+            "predicted_peak_bytes": cpu["memory"]["peak_bytes"],
+            "memory_ratio": peak / cpu["memory"]["peak_bytes"],
+            "bound_s": bound_s, "bound_by": "compute" if
+            rl["compute_s"] >= rl["memory_s"] else "memory",
+            "compute_s": rl["compute_s"], "memory_s": rl["memory_s"],
+            "share_of_bound": bound_s / step_s,
+            "compute_share": rl["compute_s"] / step_s}
+
+
+def dryrun_phase(smi, full: dict, torch, dev) -> dict:
     """The dry run on the card's PyTorch (``repro_torch.launch.dryrun``).
     Each of DRYRUN_CELLS through the launcher in its own subprocess (a
-    fake 256-rank group, fake CUDA tensors, both started together), its
+    fake 256-rank group, fake CUDA tensors, all started together), its
     seconds and its numbers beside the committed ones the CPU's fake
     tensors gave (``results/dryrun_torch``).  Meanwhile train_full's own
     cell (minicpm-2b, TRAIN_FULL's batch and micro-batches, one rank)
     predicted in this process (fake CUDA tensors; the CPU's where
-    PyTorch is built without CUDA, ``dryrun.fake_device``).  Gated: each
-    cell ``ok``, its FLOPs and collective bytes equal to the CPU's; the
-    prediction's FLOPs equal to those the FLOP counter saw in
-    train_full's step on the card within DRYRUN_FLOPS_RTOL.  Reported:
-    the card's peak memory over the predicted peak, and the roofline's
-    bound over train_full's step p50 (its share of the bound)."""
+    PyTorch is built without CUDA, ``dryrun.fake_device``), and
+    DRYRUN_SHARE run for real on the card (:func:`dryrun_share`).  Gated:
+    each cell ``ok`` and tensor parallel, its FLOPs and collective bytes
+    equal to the CPU's; the prediction's FLOPs equal to those the FLOP
+    counter saw in train_full's step on the card within
+    DRYRUN_FLOPS_RTOL; the real share's step complete and its peak under
+    an H100's 80 GB.  Reported: the card's peak memory over the predicted
+    peak, and the roofline's bound over the measured step (its share of
+    the bound), for train_full's step and for the real share."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.configs import get_config
@@ -2725,6 +2847,7 @@ def dryrun_phase(smi, full: dict) -> dict:
                 pred = dryrun.measure_cell(cfg, cell, mesh, device=device,
                                            train_accum=tf["grad_accum"])
             pred_s = time.perf_counter() - t0
+            share = dryrun_share(torch, dev, *DRYRUN_SHARE)
             cells = {}
             for (arch, shape), (t0, proc) in procs.items():
                 log, _ = proc.communicate(timeout=900)
@@ -2752,6 +2875,9 @@ def dryrun_phase(smi, full: dict) -> dict:
                         cpu["roofline"]["collective_breakdown"],
                         "bytes": res.get("roofline", {}).get(
                             "bytes_per_device") ==
+                        cpu["roofline"]["bytes_per_device"],
+                        "bytes_diff": res.get("roofline", {}).get(
+                            "bytes_per_device", 0) -
                         cpu["roofline"]["bytes_per_device"],
                         "peak": res.get("memory", {}).get("peak_bytes") ==
                         cpu["memory"]["peak_bytes"]}}
@@ -2781,17 +2907,26 @@ def dryrun_phase(smi, full: dict) -> dict:
         "step_s_p50": tr["step_s_p50"],
         "share_of_bound": bound_s / tr["step_s_p50"],
         "compute_share": terms.compute_s / tr["step_s_p50"]}
+    out["share"] = share
     out["phase_s"] = time.perf_counter() - t_phase
     emit(out)
     for name, c in cells.items():
         check(c["exit"] == 0 and c["ok"],
               f"dryrun: {name} ran ok: {c['log']} {c.get('error')}")
+        check(c["tensor_parallel"],
+              f"dryrun: {name} runs split over 'model'")
         check(c["vs_cpu"]["flops_per_device"] and c["vs_cpu"]["collectives"],
               f"dryrun: {name}'s FLOPs and collective bytes on fake CUDA "
               f"tensors equal the CPU's: {c['vs_cpu']}")
     check(out["train_full_cell"]["flops_rel_err"] <= DRYRUN_FLOPS_RTOL,
           "dryrun: the predicted FLOPs of train_full's step equal the "
           f"card's count: {pred['flops']} vs {counted}")
+    check(share["tensor_parallel"] and len(share["step_s"]) ==
+          DRYRUN_SHARE_STEPS and
+          share["card_max_memory_allocated"] < H100_HBM_BYTES,
+          "dryrun: one rank's share of "
+          f"{share['cell']} ran on the card under 80 GB: "
+          f"{share['card_max_memory_allocated']}")
     return out
 
 
@@ -3389,6 +3524,245 @@ def mesh_step(torch, dev, mesh, cfg, tc, batch, one_device) -> dict:
                 "leaves": len(model.params), "wrong": wrong[:5],
                 **{k: [str(p) for p in model.params[k].placements]
                    for k in ("blocks.0.wq", "embed")}}}
+
+
+def split_parity_phase(torch, smi) -> dict:
+    """The split over 'model' on the card (SPLIT_CASES on SPLIT_WORLD
+    ranks, :func:`split_rank`), each case held against one device.
+    Gated: every rank exits 0; each case runs tensor parallel (the
+    hybrid's attention sequence parallel, the others' by heads), its
+    residual stream between blocks a block of the sequence; its train
+    steps' loss and grad norm within SPLIT_RTOL of one device's, its
+    parameters within 4 lr with at most SPLIT_OUTLIERS of them past
+    SPLIT_P_ATOL, and its served logits within SPLIT_SERVE_TOL."""
+    import gc
+
+    from repro_torch.launch.mesh import free_port
+
+    # the ranks share the card with this process: hand its cached blocks
+    # back first
+    gc.collect()
+    torch.cuda.empty_cache()
+    job = {"port": free_port(), "world": SPLIT_WORLD, "device": "cuda:0"}
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(SRC), env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="split_",
+                                     dir=scratch_dir()) as d:
+        job["out"] = str(Path(d) / "split.json")
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--split-rank",
+             str(r), "--split-job", json.dumps(job)], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(SPLIT_WORLD)]
+        try:
+            logs = [p.communicate(timeout=SPLIT_TIMEOUT)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        rcs = [p.returncode for p in procs]
+        cases = json.loads(Path(job["out"]).read_text()) \
+            if all(rc == 0 for rc in rcs) else {}
+    out = {"phase": "split_parity", "nvidia_smi": smi, "backend": "gloo",
+           "world_size": SPLIT_WORLD, "mesh": {"data": 1,
+                                               "model": SPLIT_WORLD},
+           "dtype": "float32", "allow_tf32": False, **SPLIT,
+           "exits": rcs, "cases": cases,
+           "parent_reserved_bytes": torch.cuda.memory_reserved(),
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    check(all(rc == 0 for rc in rcs),
+          f"split_parity: every rank exits 0: {rcs} "
+          f"{[lg.strip().splitlines()[-5:] for lg in logs]}")
+    for arch in SPLIT_CASES:
+        c = cases[arch]
+        check(c["tp"] and c["seq_attn"] == (arch == "recurrentgemma-2b"),
+              f"split_parity: {arch} runs split over 'model': {c['tp']} "
+              f"(sequence-parallel attention: {c['seq_attn']})")
+        check(c["residual"] == [[SPLIT["batch"],
+                                 SPLIT["seq"] // SPLIT_WORLD,
+                                 c["d_model"]]],
+              f"split_parity: {arch}'s stream between blocks is a block "
+              f"of the sequence: {c['residual']}")
+        for g, w in zip(c["history"], c["one_device"]):
+            for k in ("loss", "grad_norm"):
+                check(abs(g[k] - w[k]) <= SPLIT_RTOL * abs(w[k]),
+                      f"split_parity: {arch}'s {k} {g[k]} vs one "
+                      f"device's {w[k]}")
+        check(c["params_max_abs_diff"] <= 4 * SPLIT["lr"] and
+              c["params_past_atol"] <= SPLIT_OUTLIERS * c["params"],
+              f"split_parity: {arch}'s parameters after the steps: "
+              f"{c['params_max_abs_diff']}, {c['params_past_atol']} of "
+              f"{c['params']} past {SPLIT_P_ATOL}")
+        check(max(c["serve_rel_err"]) <= 1,
+              f"split_parity: {arch}'s served logits within "
+              f"{SPLIT_SERVE_TOL}: {c['serve_max_abs_err']}")
+    return out
+
+
+def split_rank(torch, rank: int, job: dict) -> None:
+    """One rank of :func:`split_parity_phase`: every case of SPLIT_CASES
+    split on the (1, world) mesh, and on rank 0 one device's run beside
+    it, rank 0 writing the comparison to ``job["out"]``.  The ranks share
+    cuda:0 over gloo; the DTensor redistributions of the sharded model
+    (``train.parallel``'s ``move``) run staged, on the host copies over a
+    CPU mesh of the same ranks."""
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_config
+    from repro_torch.models.pspec_utils import activation_sharding, \
+        equivalent
+    from repro_torch.models.tensor_parallel import gather_cat
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adamw_init, resolve_moment_dtype
+    from repro_torch.serve.engine import decode_step, prefill
+    from repro_torch.serve.parallel import ShardedServer
+    from repro_torch.train import TrainConfig, make_train_step
+    from repro_torch.train import parallel as tpar
+    from repro_torch.train.trainer import make_sharded_train_step
+
+    dev = torch.device(job["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = job["world"]
+    dist.init_process_group("gloo", init_method="tcp://localhost:"
+                            f"{job['port']}", world_size=world, rank=rank)
+    names = ("data", "model")
+    mesh = init_device_mesh(dev.type, (1, world), mesh_dim_names=names)
+    host = init_device_mesh("cpu", (1, world), mesh_dim_names=names)
+
+    def staged(local, mesh_, src, dst):
+        if equivalent(mesh_, src, dst):
+            return local
+        return DTensor.from_local(local.cpu(), host, src).redistribute(
+            host, dst).to_local().to(local.device)
+
+    tpar.move = staged
+    sp, lr = SPLIT, SPLIT["lr"]
+    tc = TrainConfig(lr=lr, warmup_steps=1, total_steps=10)
+    out = {}
+    for arch, over in SPLIT_CASES.items():
+        cfg = get_config(arch, smoke=True).with_(param_dtype="float32",
+                                                 compute_dtype="float32",
+                                                 **over)
+
+        def model():
+            return init_params(cfg, torch.Generator(dev).manual_seed(0),
+                               dev)
+
+        rng = np.random.default_rng(0)
+        b, s = sp["batch"], sp["seq"]
+        if cfg.is_encoder:
+            batches = [{"frames": torch.from_numpy(rng.normal(size=(
+                b, s, cfg.frontend_dim)).astype(np.float32)).to(dev),
+                "labels": torch.from_numpy(rng.integers(
+                    0, cfg.vocab_size, (b, s))).to(dev)}
+                for _ in range(sp["steps"])]
+        else:
+            batches = [{"tokens": torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (b, s))).to(dev)}
+                for _ in range(sp["steps"])]
+        moments = resolve_moment_dtype(cfg.moment_dtype)
+        # the split steps
+        sm = tpar.ShardedModel(model().requires_grad_(True), mesh)
+        shapes = set()
+        for blk in sm.module.blocks:
+            blk.register_forward_hook(
+                lambda m, i, o: shapes.add(tuple(o.shape)))
+        opt = sm.init_opt(moments)
+        rows = tpar.batch_rows(mesh, b)
+        step = make_sharded_train_step(cfg, tc, rows)
+        hist = []
+        with activation_sharding(mesh):
+            for bt in batches:
+                sm, opt, m = step(sm, opt, {k: v[rows[0]]
+                                            for k, v in bt.items()})
+                hist.append({k: float(v) for k, v in m.items()})
+        whole = (Replicate(),) * 2
+        got_p = {n: staged(d.to_local(), mesh, sm.param_pl[n], whole)
+                 for n, d in sm.params.items()}
+        tp = sm.tp
+        res = {"tp": tp is not None,
+               "seq_attn": bool(tp is not None and tp.seq_attn),
+               "residual": sorted(shapes), "d_model": cfg.d_model,
+               "history": hist}
+        del sm, opt
+        # the served path
+        g = torch.Generator(dev).manual_seed(1)
+        sb, ss = sp["serve_batch"], sp["serve_seq"]
+
+        def whole_vocab(srv, logits):
+            return logits if srv.tp is None else \
+                gather_cat(logits, -1, srv.tp.group, srv.tp.size)
+
+        if cfg.is_encoder:
+            frames = torch.randn(sb, ss, cfg.frontend_dim, generator=g,
+                                 device=dev)
+            srv = ShardedServer(model(), mesh, decode=False, context=ss)
+            r = srv.rows(sb)
+            got = [whole_vocab(srv, srv.encode(frames[r]))]
+        else:
+            toks = torch.randint(0, cfg.vocab_size, (sb, ss), generator=g,
+                                 device=dev)
+            nxt = torch.randint(0, cfg.vocab_size, (sp["decode"], sb, 1),
+                                generator=g, device=dev)
+            srv = ShardedServer(model(), mesh, decode=False,
+                                context=sp["context"])
+            r = srv.rows(sb)
+            lp, block = srv.prefill(toks[r])
+            got = [whole_vocab(srv, lp)]
+            dec = ShardedServer(model(), mesh, decode=True,
+                                context=sp["context"])
+            for i in range(sp["decode"]):
+                lg, block = dec.decode_step(nxt[i][r], block)
+                got.append(lg)
+        if rank == 0:
+            # one device: the same steps and serving
+            one = model()
+            step1 = make_train_step(cfg, tc)
+            opt1 = adamw_init(dict(one.named_parameters()), moments)
+            res["one_device"] = []
+            for bt in batches:
+                one, opt1, m = step1(one, opt1, bt)
+                res["one_device"].append({k: float(v)
+                                          for k, v in m.items()})
+            diffs = [(got_p[n] - p.detach()).abs()
+                     for n, p in one.named_parameters()]
+            res["params"] = sum(d.numel() for d in diffs)
+            res["params_max_abs_diff"] = max(float(d.max()) for d in diffs)
+            res["params_past_atol"] = sum(int((d > SPLIT_P_ATOL).sum())
+                                          for d in diffs)
+            with torch.inference_mode():
+                if cfg.is_encoder:
+                    want = [model()(frames=frames)]
+                else:
+                    ref = model()
+                    lp, cache = prefill(ref, toks, sp["context"])
+                    want = [lp]
+                    for i in range(sp["decode"]):
+                        lg, cache = decode_step(ref, nxt[i], cache)
+                        want.append(lg)
+            res["serve_max_abs_err"] = [
+                float((a - w[r]).abs().max()) for a, w in zip(got, want)]
+            # assert_allclose's measure: |a - w| / (atol + rtol |w|)
+            res["serve_rel_err"] = [float(((a - w[r]).abs() / (
+                SPLIT_SERVE_TOL + SPLIT_SERVE_TOL * w[r].abs())).max())
+                for a, w in zip(got, want)]
+            out[arch] = res
+        dist.barrier()
+    if rank == 0:
+        Path(job["out"]).write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
 
 
 def logic_swap_train_phase(args, torch, dev, smi, cuda_ms) -> dict:

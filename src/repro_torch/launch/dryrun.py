@@ -14,7 +14,9 @@ stands for one rank of the production mesh:
     (``train.parallel.ShardedModel`` and ``make_sharded_train_step``, with
     the config's moment dtype and :data:`TRAIN_ACCUM` micro-batches), the
     sharded prefill (the encoder's forward for audio) or the sharded
-    decode step on this rank's cache block (``serve.parallel``);
+    decode step on this rank's cache block (``serve.parallel``), the
+    prefill's logits left split by vocabulary as the reference's output
+    sharding leaves them;
   * the step run once under ``FlopCounterMode`` (its FLOPs: eager mode
     runs every layer and remat's recompute, so the reference's two-depth
     scan correction is not needed), ``launch.roofline.CommCounter`` (the
@@ -168,6 +170,8 @@ def build_step(cfg, cell: ShapeCell, mesh, *, device, train_accum: int = 1,
                            context=cell.seq_len)
     params = [d.to_local() for d in server.sm.params.values()]
     if cell.kind == "prefill":
+        # the logits stay split by vocabulary, the reference's output
+        # sharding
         inputs = _inputs(cfg, cell, rows, device)
         if cfg.is_encoder:
             def step():

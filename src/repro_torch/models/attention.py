@@ -36,7 +36,9 @@ def _constrain_qkv(q, k, v, cfg):
     """In-attention layout choice, the reference's: if the head count
     divides the 'model' axis, leave the heads to their sharding;
     otherwise shard the query sequence over 'model' (sequence-parallel
-    attention: keys/values gathered, queries local)."""
+    attention: keys/values gathered, queries local).  These annotations
+    redistribute DTensors only; under tensor parallelism on plain tensors
+    the same layout is :func:`attend_seq_parallel`."""
     mesh = active_mesh()
     if mesh is None:
         return q, k, v
@@ -83,43 +85,63 @@ def _qkv(params, x, cfg):
     return q, k, v
 
 
-def _attend(params, x, cfg, positions, causal, window):
-    """Full attention; returns the output and the roped K and V before
-    they are repeated to the query heads (what the cache stores)."""
-    b, s, _ = x.shape
+def _scores_out(q, k, v, cfg, qpos, kpos, causal, window):
+    """Softmax attention of queries ``q`` (B, S, H, hd) at positions
+    ``qpos`` (B, S) over keys and values (B, T, Hk, hd) at ``kpos`` (B,
+    T): (B, S, H * hd)."""
+    b, s = q.shape[:2]
     hd = cfg.resolved_head_dim
     g = cfg.q_per_kv
-    q, k, v = _constrain_qkv(*_qkv(params, x, cfg), cfg)
-    if not cfg.is_encoder:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    kr, vr = k, v
     if g > 1:
-        kr = torch.repeat_interleave(k, g, dim=2)      # (B, T, H, hd)
-        vr = torch.repeat_interleave(v, g, dim=2)
+        k = torch.repeat_interleave(k, g, dim=2)       # (B, T, H, hd)
+        v = torch.repeat_interleave(v, g, dim=2)
     scores = torch.einsum("bshd,bthd->bhst", q.float() * (hd ** -0.5),
-                          kr.float())                  # (B, H, S, T)
-    ii = positions[:, :, None]                         # (B, S, 1) query pos
-    jj = positions[:, None, :]                         # (B, 1, S) key pos
+                          k.float())                   # (B, H, S, T)
+    ii = qpos[:, :, None]                              # (B, S, 1) query pos
+    jj = kpos[:, None, :]                              # (B, 1, T) key pos
     if causal:
         mask = jj <= ii
         if window:
             mask &= jj > ii - window
     else:
-        mask = torch.ones((b, s, s), dtype=torch.bool, device=x.device)
+        mask = torch.ones((b, s, k.shape[1]), dtype=torch.bool,
+                          device=q.device)
     scores = torch.where(mask[:, None, :, :], scores, NEG_INF)
-    w = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = torch.einsum("bhst,bthd->bshd", w, vr).reshape(
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhst,bthd->bshd", w, v).reshape(
         b, s, cfg.n_heads * hd)
+
+
+def _attend(params, x, cfg, positions, causal, window):
+    """Full attention; returns the output and the roped K and V before
+    they are repeated to the query heads (what the cache stores)."""
+    q, k, v = _constrain_qkv(*_qkv(params, x, cfg), cfg)
+    if not cfg.is_encoder:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    out = _scores_out(q, k, v, cfg, positions, positions, causal, window)
     return out @ params["wo"].to(x.dtype), k, v
 
 
-def attention_forward(params: dict, x: torch.Tensor, cfg, *,
-                      positions: torch.Tensor, causal: bool = True,
-                      window: int = 0) -> torch.Tensor:
-    """Full (train / prefill) attention; window > 0 => sliding-window
-    causal."""
-    return _attend(params, x, cfg, positions, causal, window)[0]
+def attend_seq_parallel(params, x, cfg, positions, causal, window, tp):
+    """Sequence-parallel attention (the reference's ``_constrain_qkv``
+    where the heads do not divide 'model'): ``x`` (B, S / size, D) is
+    this rank of ``tp``'s block of the sequence, ``positions`` (B, S) the
+    whole sequence's, and the weights are whole.  The queries, keys and
+    values are projected on the block; the keys and values are
+    all-gathered by sequence (their gradient reduce-scattered back), the
+    queries stay local, and the mask is by position.  Returns this rank's
+    block of the output (B, S / size, D) and the whole sequence's roped K
+    and V."""
+    s = x.shape[1]
+    qpos = positions[:, tp.rank * s:(tp.rank + 1) * s]
+    q, k, v = _qkv(params, x, cfg)
+    if not cfg.is_encoder:
+        q = apply_rope(q, qpos, cfg.rope_theta)
+        k = apply_rope(k, qpos, cfg.rope_theta)
+    k, v = tp.gather(k, 1), tp.gather(v, 1)
+    out = _scores_out(q, k, v, cfg, qpos, positions, causal, window)
+    return out @ params["wo"].to(x.dtype), k, v
 
 
 def attention_decode(params: dict, x: torch.Tensor, cfg, cache: KVCache, *,
@@ -161,16 +183,12 @@ def attention_decode(params: dict, x: torch.Tensor, cfg, cache: KVCache, *,
     return out, cache._replace(length=pos + 1)
 
 
-def prefill_cache(params: dict, x: torch.Tensor, cfg, capacity: int, *,
-                  positions: torch.Tensor, window: int = 0
-                  ) -> tuple[torch.Tensor, KVCache]:
-    """Prefill: full attention + the cache of the last ``capacity`` keys
-    (in ring layout when the prompt is longer than the cache).  K and V
-    come from the same projections as the attention (the reference
-    recomputes them; the values are the same)."""
-    _, s, _ = x.shape
-    out, k, v = _attend(params, x, cfg, positions, not cfg.is_encoder,
-                        window)
+def cache_of(k: torch.Tensor, v: torch.Tensor, capacity: int,
+             dtype: torch.dtype) -> KVCache:
+    """The decode cache of a prompt's roped keys and values (B, S, Hk,
+    hd): the last ``capacity`` of them, in ring layout when the prompt is
+    longer than the cache."""
+    s = k.shape[1]
     if capacity >= s:
         pad = capacity - s
         kc = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
@@ -182,9 +200,8 @@ def prefill_cache(params: dict, x: torch.Tensor, cfg, capacity: int, *,
         shift = (s - capacity) % capacity
         kc = torch.roll(kc, shift, dims=1)
         vc = torch.roll(vc, shift, dims=1)
-    dt = cfg_dtype(cfg)
-    return out, KVCache(k=kc.to(dt).contiguous(), v=vc.to(dt).contiguous(),
-                        length=s)
+    return KVCache(k=kc.to(dtype).contiguous(), v=vc.to(dtype).contiguous(),
+                   length=s)
 
 
 def cfg_dtype(cfg) -> torch.dtype:

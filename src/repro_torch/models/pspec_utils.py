@@ -12,9 +12,12 @@ The trainer activates a mesh (a ``torch.distributed`` ``DeviceMesh`` with
 named dims) via ``activation_sharding(mesh)``; without it (one device)
 ``constrain`` is a no-op, as in the reference.  With a mesh it
 redistributes a DTensor to the resolved placements and returns any other
-tensor as it is: the sharded trainer runs the model on each rank's own
-rows as plain tensors, so a plain activation is already laid out.  Dims
-that don't divide the axis size degrade to replication.
+tensor as it is.  The sharded trainer runs the model on each rank's own
+rows as plain tensors, and the split over 'model' that these annotations
+ask for (the residual stream by sequence, sequence-parallel attention)
+is written out by the model under tensor parallelism
+(``models/tensor_parallel.py``), not by ``constrain``.  Dims that don't
+divide the axis size degrade to replication.
 
 The partition spec :class:`P` and the rule functions' view of a mesh,
 :class:`Mesh` (its axis names and sizes), live here so both the model

@@ -34,12 +34,15 @@ def _log_a(params, r, c: float):
 
 
 def rglru_scan(params, x: torch.Tensor, c: float = 8.0,
-               init_h: torch.Tensor | None = None
+               init_h: torch.Tensor | None = None,
+               gate_x: torch.Tensor | None = None
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D_rnn) -> (h (B, S, D_rnn) in x's dtype, final h (B,
-    D_rnn) float32)."""
+    D_rnn) float32).  Under tensor parallelism ``x`` is a block of the
+    channels, ``gate_x`` the whole width the gates read (``w_a`` and
+    ``w_x`` split by column); by default ``x`` itself."""
     s = x.shape[1]
-    r, i = _gates(params, x)
+    r, i = _gates(params, x if gate_x is None else gate_x)
     a = torch.exp(_log_a(params, r, c))                    # (B,S,D)
     g = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * x.float())
     if init_h is not None:
@@ -58,10 +61,12 @@ def rglru_scan(params, x: torch.Tensor, c: float = 8.0,
 
 
 def rglru_step(params, x_t: torch.Tensor, h_prev: torch.Tensor,
-               c: float = 8.0) -> torch.Tensor:
+               c: float = 8.0, gate_x: torch.Tensor | None = None
+               ) -> torch.Tensor:
     """One decode step: x_t (B, D_rnn), h_prev (B, D_rnn) -> h_t
-    (float32)."""
-    r, i = _gates(params, x_t[:, None, :])
+    (float32); ``gate_x`` as in :func:`rglru_scan`."""
+    gx = x_t if gate_x is None else gate_x
+    r, i = _gates(params, gx[:, None, :])
     a = torch.exp(_log_a(params, r, c)[:, 0])
     g = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (
         i[:, 0] * x_t.float())

@@ -40,11 +40,17 @@ is the reference's loss: next-token, over the text only for vlm, against
 The reference's sharding annotations are here at the same places
 (``models/pspec_utils.constrain``: the residual stream between blocks,
 sequence-sharded over 'model' with ``cfg.seq_parallel``, and the logits);
-they redistribute DTensors under an active mesh and change nothing else.
-Under the sharded trainer a dense, vlm or moe model runs its split
-products through :meth:`Transformer.set_tensor_parallel`
-(``models/tensor_parallel.py``); without it no collective runs.  The
-reference's layer and group scans are a Python loop over the blocks.
+they redistribute DTensors under an active mesh and change no plain
+tensor, so they lay nothing out on the sharded trainer's local tensors.
+There every family but the ssm runs its split over 'model' through
+:meth:`Transformer.set_tensor_parallel` (``models/tensor_parallel.py``):
+the heads (or, where they do not divide the group, the query sequence),
+the FFN units, the RG-LRU width and the vocabulary split, and with
+``cfg.seq_parallel`` the residual stream carried between blocks as this
+rank's block of the sequence (the embedding's sum reduce-scattered by
+sequence, gathered before the head).  Without it no collective runs.
+The reference's layer and group scans are a Python loop over the
+blocks.
 """
 from __future__ import annotations
 
@@ -255,15 +261,19 @@ def _rec_gate(p, h):
 _LRU_KEYS = ("w_a", "b_a", "w_x", "b_x", "lam")
 
 
-def _rec_mix(p, h, cfg, conv_carry=None, init_h=None):
+def _rec_mix(p, h, cfg, conv_carry=None, init_h=None, tp=None):
     """Griffin recurrent mixing on pre-normed input. Returns (y, carry,
-    final h)."""
+    final h).  Under tensor parallelism (``tp``) the weights are this
+    rank's ``d_rnn`` block, ``h`` is whole, and ``y`` is a partial sum
+    over the group: the conv's output is all-gathered along ``d_rnn`` for
+    the gates, the rest runs on the block."""
     gate = _rec_gate(p, h)
     u = h @ p["rnn_proj"].to(h.dtype)
     u, new_carry = rglru.temporal_conv({"conv_w": p["conv_w"]}, u,
                                        cfg.ssm_conv_width, conv_carry)
+    gate_x = None if tp is None else tp.gather(u, -1)
     u, h_last = rglru.rglru_scan({k: p[k] for k in _LRU_KEYS}, u,
-                                 cfg.rglru_c, init_h)
+                                 cfg.rglru_c, init_h, gate_x)
     y = (gate * u) @ p["out_proj"].to(h.dtype)
     return y, new_carry, h_last
 
@@ -283,11 +293,11 @@ class Block(nn.Module):
         self.program = None         # the logic FFN's compiled program
         self.tp = None              # its TensorParallel share, if split
 
-    def _tp_in(self, h):
-        return h if self.tp is None else self.tp.enter(h)
+    def _tp_in(self, h, seq: bool = False):
+        return h if self.tp is None else self.tp.enter(h, seq)
 
-    def _tp_out(self, y):
-        return y if self.tp is None else self.tp.exit(y)
+    def _tp_out(self, y, seq: bool = False):
+        return y if self.tp is None else self.tp.exit(y, seq)
 
     def params(self) -> dict:
         return dict(self.named_parameters(recurse=False))
@@ -303,23 +313,60 @@ class Block(nn.Module):
             return binary_ffn(p, h)
         return logic_ffn_apply(self.program, p, h)
 
-    def forward(self, x, positions,
+    def mlp(self, p: dict, h: torch.Tensor, seq: bool = False
+            ) -> torch.Tensor:
+        """The FFN of pre-normed ``h`` in the residual stream's layout
+        (this rank's block of the sequence with ``seq``), its output in
+        the same layout."""
+        return self._tp_out(self.ffn(p, self._tp_in(h, seq)), seq)
+
+    def attention(self, p: dict, h: torch.Tensor, positions: torch.Tensor,
+                  seq: bool = False
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The attention of pre-normed ``h`` in the residual stream's
+        layout (this rank's block of the sequence with ``seq``;
+        ``positions`` are the whole sequence's): its output in the same
+        layout, and the whole sequence's roped K and V of the heads the
+        block ran."""
+        causal = not self.cfg.is_encoder
+        if self.tp is not None and self.tp.seq_attn:
+            # the weights are whole: no partial sums to exit
+            if seq:
+                return attn.attend_seq_parallel(p, h, self.cfg, positions,
+                                                causal, self.window, self.tp)
+            return attn._attend(p, h, self.cfg, positions, causal,
+                                self.window)
+        y, k, v = attn._attend(p, self._tp_in(h, seq), self.cfg, positions,
+                               causal, self.window)
+        return self._tp_out(y, seq), k, v
+
+    def recurrent(self, p: dict, h: torch.Tensor, seq: bool = False,
+                  conv_carry=None, init_h=None):
+        """The RG-LRU mixing of pre-normed ``h`` in the residual stream's
+        layout: (its output in the same layout, the conv's carry, the
+        final state), the last two of this rank's ``d_rnn`` block under
+        tensor parallelism."""
+        y, carry, h_last = _rec_mix(p, self._tp_in(h, seq), self.cfg,
+                                    conv_carry, init_h, self.tp)
+        return self._tp_out(y, seq), carry, h_last
+
+    def forward(self, x, positions, seq: bool = False,
                 ffn_inputs: list | None = None) -> torch.Tensor:
+        """The block on the residual stream ``x`` (this rank's block of
+        the sequence with ``seq``)."""
         p = self.params()
         if self.kind == "ssm":
             y, _, _ = _ssm_mix(p, rms_norm(x, p["norm"]), self.cfg)
             return x + y
         h = rms_norm(x, p["attn_norm"])
         if self.kind == "rec":
-            x = x + _rec_mix(p, h, self.cfg)[0]
+            x = x + self.recurrent(p, h, seq)[0]
         else:
-            x = x + self._tp_out(attn.attention_forward(
-                p, self._tp_in(h), self.cfg, positions=positions,
-                causal=not self.cfg.is_encoder, window=self.window))
+            x = x + self.attention(p, h, positions, seq)[0]
         h = rms_norm(x, p["mlp_norm"])
         if ffn_inputs is not None:
             ffn_inputs.append(h)
-        return x + self._tp_out(self.ffn(p, self._tp_in(h)))
+        return x + self.mlp(p, h, seq)
 
 
 class Transformer(nn.Module):
@@ -344,25 +391,29 @@ class Transformer(nn.Module):
 
     def set_tensor_parallel(self, tp) -> None:
         """Run as one rank's share of a 'model' group
-        (``models/tensor_parallel.TensorParallel``): the blocks take the
-        share's configuration, the embedding and head their vocabulary
-        blocks.  The caller gives the parameters their shares.  The
-        dense, vlm and moe families only (``TensorParallel.fits``)."""
+        (``models/tensor_parallel.TensorParallel``): each block takes its
+        kind's share configuration, the embedding and head their
+        vocabulary blocks.  The caller gives the parameters their shares.
+        Every family but the ssm (``TensorParallel.fits``)."""
         if not tp.fits(self.cfg, tp.size):
             raise ValueError(f"{self.cfg.name}: tensor parallelism over "
-                             f"{tp.size} ranks splits the attention and "
-                             "SwiGLU or expert FFN of the dense, vlm and "
-                             "moe families into whole blocks")
+                             f"{tp.size} ranks splits the FFN units, the "
+                             "vocabulary and the RG-LRU width of the "
+                             "dense, vlm, moe, hybrid and audio families "
+                             "into whole blocks")
         self.tp = tp
         for blk in self.blocks:
-            blk.tp, blk.cfg = tp, tp.local_config(self.cfg)
+            blk.tp, blk.cfg = tp, tp.local_config(self.cfg, blk.kind)
 
     def embed_inputs(self, tokens=None, *, frames=None, vision=None
-                     ) -> tuple[torch.Tensor, torch.Tensor]:
-        """(x (B, S, D), positions (B, S)) from the family's inputs:
-        ``frames`` (B, S, frontend_dim) for audio; ``tokens`` (B, S_t)
-        otherwise, after ``vision`` (B, n_vis, D), the stub patch
-        embeddings, for vlm."""
+                     ) -> tuple[torch.Tensor, torch.Tensor, bool]:
+        """(x, positions (B, S), seq) from the family's inputs: ``frames``
+        (B, S, frontend_dim) for audio; ``tokens`` (B, S_t) otherwise,
+        after ``vision`` (B, n_vis, D), the stub patch embeddings, for
+        vlm.  ``x`` is the residual stream in its layout: (B, S, D), or
+        with ``seq`` (tensor parallelism whose group the sequence divides,
+        ``TensorParallel.splits``) this rank's block of the sequence (B,
+        S / size, D)."""
         cfg, cdt = self.cfg, _cdtype(self.cfg)
         audio, vlm = cfg.family == "audio", cfg.family == "vlm"
         if (frames is not None) != audio or (tokens is not None) == audio \
@@ -374,34 +425,46 @@ class Transformer(nn.Module):
                 f"frames={frames is not None}, vision={vision is not None}")
         if audio:
             frames = torch.as_tensor(frames, device=self.device)
-            x = frames.to(cdt) @ self.frontend_proj.to(cdt)
+            b, s = frames.shape[:2]
         else:
-            x = self.lookup(tokens)
+            tokens = torch.as_tensor(tokens, device=self.device)
             if vlm:
-                vision = torch.as_tensor(vision, device=self.device)
-                x = torch.cat([vision.to(cdt), x], dim=1)
-        b, s = x.shape[:2]
+                vision = torch.as_tensor(vision, device=self.device).to(cdt)
+            b, s = tokens.shape[0], tokens.shape[1] + (
+                vision.shape[1] if vlm else 0)
+        seq = self.tp is not None and self.tp.splits(s)
+        if audio:
+            x = frames.to(cdt) @ self.frontend_proj.to(cdt)
+            if seq:
+                x = self.tp.split(x, 1)
+        else:
+            x = self.lookup(tokens, seq, vision)
         positions = torch.arange(s, dtype=torch.int32,
                                  device=self.device)[None].expand(b, s)
-        return x, positions
+        return x, positions, seq
 
-    def lookup(self, tokens) -> torch.Tensor:
-        """The embedding rows of ``tokens`` in the compute dtype.  Under
-        tensor parallelism the table is this rank's block: of the
-        vocabulary (the training layout; ``TensorParallel.embed``), or of
-        ``d_model`` (the decode layout, ``param_pspecs(decode=True)``: the
-        columns looked up here and gathered)."""
+    def lookup(self, tokens, seq: bool = False, prefix=None
+               ) -> torch.Tensor:
+        """The embedding rows of ``tokens`` in the compute dtype, after
+        ``prefix`` (B, P, D) where given (the vlm's patch embeddings);
+        with ``seq`` this rank's block of the sequence.  Under tensor
+        parallelism the table is this rank's block: of the vocabulary (the
+        training layout; ``TensorParallel.embed``), or of ``d_model`` (the
+        decode layout, ``param_pspecs(decode=True)``: the columns looked
+        up here and gathered)."""
         tokens = torch.as_tensor(tokens, device=self.device)
         table = self.embed.to(_cdtype(self.cfg))
         if self.tp is not None and table.shape[0] != self.cfg.padded_vocab:
-            return self.tp.embed(tokens, table)
+            return self.tp.embed(tokens, table, seq, prefix)
         # the lookup as F.embedding: the same rows, and a backward that
         # sums each row's gradient in a fixed order (indexing's
         # accumulating backward does not)
         x = F.embedding(tokens, table)
         if self.tp is not None and table.shape[1] != self.cfg.d_model:
             x = self.tp.gather_last(x)
-        return x
+        if prefix is not None:
+            x = torch.cat([prefix, x], dim=1)
+        return self.tp.split(x, 1) if seq else x
 
     def forward(self, tokens: torch.Tensor | None = None,
                 ffn_inputs: list | None = None, *, frames=None,
@@ -412,46 +475,56 @@ class Transformer(nn.Module):
         turns remat off: a recomputed block would collect twice.  Under
         tensor parallelism ``gather=False`` leaves the logits split by
         vocabulary, this rank's columns (:meth:`lm_logits`)."""
-        x, positions = self.embed_inputs(tokens, frames=frames,
-                                         vision=vision)
+        x, positions, seq = self.embed_inputs(tokens, frames=frames,
+                                              vision=vision)
         remat = _REMAT.get(self.cfg.remat) if (
             torch.is_grad_enabled() and ffn_inputs is None) else None
         # seq_parallel: the residual stream between blocks is
-        # sequence-sharded over 'model' under a mesh
+        # sequence-sharded over 'model' under a mesh (the reference's
+        # annotation); under tensor parallelism embed_inputs gives this
+        # rank's block of the sequence (seq), where the sequence divides
+        # the group
         seq_ax = "model" if self.cfg.seq_parallel else None
         x = constrain(x, "dp", seq_ax, None)
         for blk in self.blocks:
             if remat is None:
-                x = blk(x, positions, ffn_inputs)
+                x = blk(x, positions, seq, ffn_inputs)
             else:
-                x = remat(blk, x, positions)
+                x = remat(blk, x, positions, seq)
             x = constrain(x, "dp", seq_ax, None)
         x = rms_norm(x, self.final_norm)
-        return self.lm_logits(x, gather)
+        return self.lm_logits(x, gather, seq)
 
-    def lm_logits(self, x: torch.Tensor, gather: bool = True
-                  ) -> torch.Tensor:
+    def lm_logits(self, x: torch.Tensor, gather: bool = True,
+                  seq: bool = False) -> torch.Tensor:
         """(..., D) -> (..., padded_vocab) float32 logits, the pad columns
         past ``vocab_size`` at -1e30; under tensor parallelism with a head
         split by vocabulary and ``gather=False``, this rank's block of
-        the columns."""
+        the columns.  With ``seq`` ``x`` is this rank's block of the
+        sequence (B, S / size, D), all-gathered before the head."""
         if self.cfg.family == "audio":
             head = self.head
         elif self.cfg.tie_embeddings:
             head = self.embed.T
         else:
             head = self.lm_head
+        vocab_split = self.tp is not None and \
+            head.shape[0] == self.cfg.d_model and \
+            head.shape[1] != self.cfg.padded_vocab
+        if seq and not vocab_split:
+            raise ValueError("a sequence-split stream meets only a head "
+                             "split by vocabulary")
         if self.tp is None or head.shape == (self.cfg.d_model,
                                              self.cfg.padded_vocab):
             logits = (x @ head.to(x.dtype)).float()
-        elif head.shape[0] != self.cfg.d_model:
+        elif not vocab_split:
             # the tied head of a d_model-split table: a partial product of
             # this rank's columns of x, summed over the group
             n = head.shape[0]
             xr = x[..., self.tp.rank * n:(self.tp.rank + 1) * n]
             logits = self.tp.exit(xr @ head.to(x.dtype)).float()
         else:
-            logits = (self.tp.enter(x) @ head.to(x.dtype)).float()
+            logits = (self.tp.enter(x, seq) @ head.to(x.dtype)).float()
             n = logits.shape[-1]
             pad = self.cfg.vocab_size - self.tp.rank * n
             if pad < n:

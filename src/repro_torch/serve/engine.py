@@ -40,7 +40,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.pspec_utils import constrain
 from repro_torch.models.transformer import (_LRU_KEYS, Block, Transformer,
-                                            _cdtype, _rec_gate, _rec_mix,
+                                            _cdtype, _rec_gate,
                                             _ssm_mix, layer_kinds)
 
 
@@ -145,19 +145,23 @@ def _ssm_block_step(blk: Block, x, cfg, state, carry):
 
 
 def _rec_block_step(blk: Block, x, cfg, h_state, carry):
-    """One RG-LRU block on one token; returns (x, h_state, carry)."""
+    """One RG-LRU block on one token; returns (x, h_state, carry).  Under
+    tensor parallelism (``blk.tp``) the states are this rank's ``d_rnn``
+    block, the conv's output is gathered for the gates and the products
+    leave through the group's all-reduce."""
     p = blk.params()
-    h = rms_norm(x, p["attn_norm"])
+    h = blk._tp_in(rms_norm(x, p["attn_norm"]))
     gate = _rec_gate(p, h)
     u = h @ p["rnn_proj"].to(h.dtype)
     u, carry = rglru.temporal_conv({"conv_w": p["conv_w"]}, u,
                                    cfg.ssm_conv_width, carry)
+    gate_x = None if blk.tp is None else blk.tp.gather(u[:, 0], -1)
     h_state = rglru.rglru_step({k: p[k] for k in _LRU_KEYS}, u[:, 0],
-                               h_state, cfg.rglru_c)
+                               h_state, cfg.rglru_c, gate_x)
     y = (gate * h_state[:, None].to(gate.dtype)) @ p["out_proj"].to(x.dtype)
-    x = x + y
+    x = x + blk._tp_out(y)
     h = rms_norm(x, p["mlp_norm"])
-    return x + blk.ffn(p, h), h_state, carry
+    return x + blk.mlp(p, h), h_state, carry
 
 
 # ---------------------------------------------------------------------------
@@ -201,44 +205,50 @@ def decode_step(model: Transformer, tokens: torch.Tensor,
 
 @torch.inference_mode()
 def prefill(model: Transformer, tokens: torch.Tensor, context: int, *,
-            vision=None) -> tuple[torch.Tensor, DecodeCache]:
+            vision=None, keep=None) -> tuple[torch.Tensor, DecodeCache]:
     """Full forward over the prompt tokens (B, S) (after ``vision`` (B,
     n_vis, D) for vlm): (logits (B, n_vis + S, padded_vocab) float32, the
-    populated cache)."""
+    populated cache).  Under tensor parallelism (a rank of
+    ``serve.parallel.ShardedServer``) the stream runs in the training
+    layout, the logits are this rank's block of the vocabulary, as the
+    reference's prefill leaves them sharded over 'model', and
+    ``keep(field, blk, t)`` gives what the rank keeps of each layer's
+    cache tensor ``t``."""
     cfg = model.cfg
     _check_decoder(cfg)
-    x, positions = model.embed_inputs(tokens, vision=vision)
+    x, positions, seq = model.embed_inputs(tokens, vision=vision)
     x = constrain(x, "dp", None, None)
     cap = cache_capacity(cfg, context)
-    ks, vs, sts, cvs, hs, rcs = [], [], [], [], [], []
+    got = {k: [] for k in DecodeCache._fields if k != "length"}
+
+    def add(field, blk, t):
+        got[field].append(t if keep is None else keep(field, blk, t))
+
     for blk in model.blocks:
         p = blk.params()
         if blk.kind == "ssm":
             y, carry, state = _ssm_mix(p, rms_norm(x, p["norm"]), cfg)
             x = x + y
-            sts.append(state)
-            cvs.append(carry)
+            add("ssm_state", blk, state)
+            add("conv_carry", blk, carry)
             continue
         h = rms_norm(x, p["attn_norm"])
         if blk.kind == "rec":
-            y, carry, h_last = _rec_mix(p, h, cfg)
-            hs.append(h_last)
-            rcs.append(carry)
+            y, carry, h_last = blk.recurrent(p, h, seq)
+            add("rec_h", blk, h_last)
+            add("rec_conv", blk, carry)
         else:
-            y, kv = attn.prefill_cache(p, h, cfg, cap, positions=positions,
-                                       window=blk.window)
-            ks.append(kv.k)
-            vs.append(kv.v)
+            # K and V from the attention's own projections (the reference
+            # recomputes them; the values are the same)
+            y, k, v = blk.attention(p, h, positions, seq)
+            kv = attn.cache_of(k, v, cap, attn.cfg_dtype(cfg))
+            add("kv_k", blk, kv.k)
+            add("kv_v", blk, kv.v)
         x = x + y
         h = rms_norm(x, p["mlp_norm"])
-        x = x + blk.ffn(p, h)
-
-    def stack(ts):
-        return torch.stack(ts).contiguous() if ts else None
-
-    cache = DecodeCache(kv_k=stack(ks), kv_v=stack(vs),
-                        ssm_state=stack(sts), conv_carry=stack(cvs),
-                        rec_h=stack(hs), rec_conv=stack(rcs),
-                        length=x.shape[1])
+        x = x + blk.mlp(p, h, seq)
+    cache = DecodeCache(**{k: torch.stack(ts).contiguous()
+                           for k, ts in got.items() if ts},
+                        length=positions.shape[1])
     x = rms_norm(x, model.final_norm)
-    return model.lm_logits(x), cache
+    return model.lm_logits(x, False, seq), cache

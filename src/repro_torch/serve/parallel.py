@@ -8,30 +8,44 @@ XLA place the collectives.  Here they are explicit.  Each rank
 
   * holds its blocks of the parameters (a ``train.parallel.ShardedModel``;
     the decode layout splits the embedding by ``d_model`` over 'model')
-    and gathers them at the start of every step: over 'pod' and 'data',
-    and over 'model' unless the model runs tensor parallel there
-    (``train.parallel.model_parallel``: the dense, vlm and moe families,
-    each rank its query heads, FFN units and vocabulary, ranks sharing a
-    kv head where the kv heads are fewer than the ranks);
+    and gathers them at the start of every step over 'pod' and 'data',
+    and over 'model' only what the model runs whole
+    (``train.parallel.model_parallel``: every family but the ssm runs
+    tensor parallel, each rank its FFN units, RG-LRU channels and
+    vocabulary, and its query heads where they divide 'model', ranks
+    sharing a kv head where the kv heads are fewer than the ranks; where
+    the heads do not divide, the attention weights are whole);
   * runs its rows of the batch (``train.parallel.batch_rows``);
   * holds its block of the decode cache as ``cache_placements`` lays it
     out: rows over the batch axes and, over 'model', the kv heads where
     they divide it, else the cache's sequence; the SSM state's heads and
     the RG-LRU state's width.
 
+Prefill and encode run the training layout (``models/tensor_parallel.py``)
+through ``serve.engine.prefill``'s loop and the model's forward: the
+residual stream split by sequence where the prompt divides 'model',
+sequence-parallel attention where the heads do not, the TP splits of the
+hybrid's recurrent blocks and the audio GeLU MLP.  Each rank keeps its
+block of the cache the prompt leaves, and its block of the logits'
+vocabulary, as the reference's output sharding leaves them.
+
 Decode attention runs over the cache block the rank holds.  Where the
 block is a run of the sequence, the rank scores every head over its
 positions, and the softmax's max, its sum and the weighted values are
 all-reduced over 'model' (the reference writes its decode softmax with an
 explicit max and sum so that XLA can do the same); only the rank whose
-run holds the new token's slot writes it.  Under tensor parallelism the
-queries and the new token's keys and values are first gathered over
-'model' (one token's, a few KB a row), and each rank keeps its own heads'
-output for its rows of ``wo``.  The recurrent states that the cache
-splits over 'model' while the model runs them whole (the ssm, the
-hybrid's RG-LRU) are gathered before their layer and split after.  On a
-mesh whose dims have one rank each nothing moves, and every step is the
-one-device step's arithmetic.
+run holds the new token's slot writes it.  Where the model runs its
+heads split, the queries and the new token's keys and values are first
+gathered over 'model' (one token's, a few KB a row), and each rank keeps
+its own heads' output for its rows of ``wo``; where the attention
+weights are whole (minicpm-2b, the hybrid's attention), every rank
+projects every head and applies the whole ``wo``.  The FFN and the
+vocabulary run split.  The hybrid's recurrent blocks run on the ``d_rnn``
+block of ``rec_h`` and ``rec_conv`` the rank holds; the ssm's states,
+which the cache splits over 'model' while the model runs them whole, are
+gathered before their layer and split after.  On a mesh whose dims have
+one rank each nothing moves, and every step is the one-device step's
+arithmetic.
 """
 from __future__ import annotations
 
@@ -42,14 +56,11 @@ from repro_torch.models import attention as attn
 from repro_torch.models.layers import apply_rope, rms_norm
 from repro_torch.models.tensor_parallel import gather_cat
 from repro_torch.serve.engine import (DecodeCache, _rec_block_step,
-                                      _ssm_block_step, cache_capacity,
-                                      decode_cache_shapes)
-from repro_torch.models.transformer import Transformer, _rec_mix, _ssm_mix
+                                      _ssm_block_step, decode_cache_shapes,
+                                      prefill)
+from repro_torch.models.transformer import Transformer
 from repro_torch.train.parallel import ShardedModel, batch_rows
 from repro_torch.train.sharding import cache_placements
-
-_STATES = ("ssm_state", "conv_carry", "rec_h", "rec_conv")
-
 
 class ShardedServer:
     """``model`` (built whole on every rank from the same seed) sharded on
@@ -131,15 +142,29 @@ class ShardedServer:
     def _gather_heads(self, t: torch.Tensor) -> torch.Tensor:
         return gather_cat(t, 2, self.group, self.size)
 
+    def _ran_heads(self) -> bool:
+        """Whether the model's attention runs this rank's heads alone."""
+        return self.tp is not None and not self.tp.seq_attn
+
     def _kv_block(self, t: torch.Tensor) -> torch.Tensor:
         """A layer's keys or values (B, C, heads the module ran, hd) ->
         this rank's cache block of them."""
         dim = self.splits["kv_k"]
-        if self.tp is not None and dim != 3:
+        if self._ran_heads():
+            if dim == 3:
+                return t.contiguous()     # the module's heads are the block
             t = self._gather_heads(t)[:, :, ::self.tp.kv_share]
-        if self.tp is not None and dim == 3:
-            return t.contiguous()     # the module's heads are the block
         return self._block("kv_k", t)
+
+    def _keep(self, field: str, blk, t: torch.Tensor) -> torch.Tensor:
+        """A layer's cache tensor from prefill -> this rank's block of it
+        (the state itself where a recurrent block ran its ``d_rnn``
+        block)."""
+        if field in ("kv_k", "kv_v"):
+            return self._kv_block(t)
+        if blk.tp is not None:
+            return t.contiguous()
+        return self._block(field, t)
 
     # ---- prefill ----
     @torch.inference_mode()
@@ -147,47 +172,19 @@ class ShardedServer:
                 ) -> tuple[torch.Tensor, DecodeCache]:
         """``serve.engine.prefill`` of this rank's rows ``tokens`` (after
         their ``vision`` for vlm): (their logits, this rank's cache
-        block)."""
+        block).  Under tensor parallelism the logits are this rank's
+        block of the vocabulary, as the reference's prefill returns them
+        (sharded over 'model')."""
         self.sm.gather()
-        model, cfg = self.model, self.cfg
-        x, positions = model.embed_inputs(tokens, vision=vision)
-        cap = cache_capacity(cfg, self.context)
-        got = {k: [] for k in ("kv_k", "kv_v", *_STATES)}
-        for blk in model.blocks:
-            p = blk.params()
-            if blk.kind == "ssm":
-                y, carry, state = _ssm_mix(p, rms_norm(x, p["norm"]), cfg)
-                x = x + y
-                got["ssm_state"].append(self._block("ssm_state", state))
-                got["conv_carry"].append(self._block("conv_carry", carry))
-                continue
-            h = rms_norm(x, p["attn_norm"])
-            if blk.kind == "rec":
-                y, carry, h_last = _rec_mix(p, h, cfg)
-                got["rec_h"].append(self._block("rec_h", h_last))
-                got["rec_conv"].append(self._block("rec_conv", carry))
-            else:
-                y, kv = attn.prefill_cache(p, blk._tp_in(h), blk.cfg, cap,
-                                           positions=positions,
-                                           window=blk.window)
-                y = blk._tp_out(y)
-                got["kv_k"].append(self._kv_block(kv.k))
-                got["kv_v"].append(self._kv_block(kv.v))
-            x = x + y
-            h = rms_norm(x, p["mlp_norm"])
-            x = x + blk._tp_out(blk.ffn(p, blk._tp_in(h)))
-        cache = DecodeCache(**{k: torch.stack(v).contiguous()
-                               for k, v in got.items() if v},
-                            length=x.shape[1])
-        x = rms_norm(x, model.final_norm)
-        return model.lm_logits(x), cache
+        return prefill(self.model, tokens, self.context, vision=vision,
+                       keep=self._keep)
 
     @torch.inference_mode()
     def encode(self, frames) -> torch.Tensor:
         """An encoder's forward (audio: the prefill cell) of this rank's
-        rows of ``frames``."""
+        rows of ``frames``; the logits split as :meth:`prefill`'s."""
         self.sm.gather()
-        return self.model(frames=frames)
+        return self.model(frames=frames, gather=False)
 
     # ---- decode ----
     @torch.inference_mode()
@@ -218,9 +215,14 @@ class ShardedServer:
 
     def _step_states(self, cache, state: str, conv: str, i: int, step,
                      blk, x) -> torch.Tensor:
-        """A recurrent block's ``step`` (``engine``'s) on its layer's whole
-        states; this rank keeps its blocks of the new ones."""
+        """A recurrent block's ``step`` (``engine``'s): on this rank's
+        blocks of its layer's states where the block runs split, else on
+        the whole states, this rank keeping its blocks of the new ones."""
         s_all, c_all = getattr(cache, state), getattr(cache, conv)
+        if blk.tp is not None:
+            x, s_all[i], c_all[i] = step(blk, x, self.cfg, s_all[i],
+                                         c_all[i])
+            return x
         x, s, c = step(blk, x, self.cfg, self._whole(state, s_all[i]),
                        self._whole(conv, c_all[i]))
         s_all[i] = self._block(state, s)
@@ -230,16 +232,19 @@ class ShardedServer:
     def _attn_block(self, blk, x, kv: attn.KVCache) -> torch.Tensor:
         p = blk.params()
         h = rms_norm(x, p["attn_norm"])
-        x = x + blk._tp_out(self._attend(blk, p, blk._tp_in(h), kv))
+        if self._ran_heads():
+            x = x + blk._tp_out(self._attend(blk, p, blk._tp_in(h), kv))
+        else:       # no split, or the attention weights whole
+            x = x + self._attend(blk, p, h, kv)
         h = rms_norm(x, p["mlp_norm"])
-        return x + blk._tp_out(blk.ffn(p, blk._tp_in(h)))
+        return x + blk.mlp(p, h)
 
     def _attend(self, blk, p: dict, h: torch.Tensor, kv: attn.KVCache
                 ) -> torch.Tensor:
         """``attention_decode`` on this rank's cache block: its heads, or
         every head over its run of the sequence (the softmax reduced over
         'model'); returns the output of the module's heads through its
-        rows of ``wo``."""
+        rows of ``wo`` (all of them where the weights are whole)."""
         full, b = self.cfg, h.shape[0]
         hd = full.resolved_head_dim
         pos = kv.length
@@ -251,13 +256,14 @@ class ShardedServer:
             k = apply_rope(k, positions, full.rope_theta)
         dim = self.splits["kv_k"]
         heads, seq = dim == 3, dim == 2
-        if heads and self.tp is None:
+        ran_heads = self._ran_heads()
+        if heads and not ran_heads:
             # the module ran every head; this rank's cache holds a block
             hq, hk = full.n_heads // self.size, full.n_kv_heads // self.size
             q = q[:, :, self.rank * hq:(self.rank + 1) * hq]
             k = k[:, :, self.rank * hk:(self.rank + 1) * hk]
             v = v[:, :, self.rank * hk:(self.rank + 1) * hk]
-        elif not heads and self.tp is not None:
+        elif not heads and ran_heads:
             q = self._gather_heads(q)
             k = self._gather_heads(k)[:, :, ::self.tp.kv_share]
             v = self._gather_heads(v)[:, :, ::self.tp.kv_share]
@@ -288,9 +294,9 @@ class ShardedServer:
         if seq:
             dist.all_reduce(out, group=self.group)
         out = out.reshape(b, 1, -1, hd)
-        if heads and self.tp is None:
+        if heads and not ran_heads:
             out = self._gather_heads(out)
-        elif not heads and self.tp is not None:
+        elif not heads and ran_heads:
             hq = blk.cfg.n_heads
             out = out[:, :, self.tp.rank * hq:(self.tp.rank + 1) * hq]
         return out.reshape(b, 1, -1) @ p["wo"].to(h.dtype)

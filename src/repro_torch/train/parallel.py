@@ -12,25 +12,31 @@ explicit, around the one-device step's arithmetic:
     'pod').
   * **Gather.**  Before a step each parameter is all-gathered over 'pod'
     and 'data' (FSDP's all-gather on use).  Over 'model' it stays split
-    where the model runs tensor parallel (:func:`model_parallel`: the
-    dense, vlm and moe families' heads, FFN units (each expert's) and
+    where the model runs tensor parallel (:func:`model_parallel`: every
+    family but the ssm, whose FFN units (each expert's), RG-LRU width and
     vocabulary split into whole blocks; ``models/tensor_parallel.py``),
-    and is gathered too otherwise: the ssm (``tensor_parallel=False``),
-    the hybrid (its recurrent blocks) and audio (its GeLU MLP), which
-    gives the reference's result either way.  Where 'model' has more
-    ranks than the model kv heads, ranks share a head: each gathers its
-    head's columns from the ranks storing them.  On a mesh dim of one
-    rank nothing moves: on a (1, 1) mesh the model's parameters are the
-    DTensors' own local tensors.
+    and is gathered too otherwise (the ssm, ``tensor_parallel=False``).
+    Where the query heads do not divide 'model', attention runs
+    sequence parallel and its weights (``wq``, ``wk``, ``wv``, ``wo``)
+    are gathered over 'model' for the step while their storage stays
+    split.  Where 'model' has more ranks than the model kv heads, ranks
+    share a head: each gathers its head's columns from the ranks storing
+    them.  On a mesh dim of one rank nothing moves: on a (1, 1) mesh the
+    model's parameters are the DTensors' own local tensors.
   * **Batch.**  Each rank runs its rows of the global batch
     (``sharding.batch_pspec``: the rows split over the batch axes, mesh
     order major first; 'model' is one of them for a config with
     ``tensor_parallel=False``, the reference's pure data parallelism),
     with the one-device step's micro-batch loop.
-  * **Reduce.**  The loss and each gradient are all-reduced over the
-    batch axes and divided by their number of shards, so they are the
-    global batch's mean; the gradients then keep this rank's block of
-    each parameter's placements.
+  * **Reduce.**  The replicated weights a rank used on its own share
+    (``TensorParallel.partial_grads``: the router, the per-head norms,
+    and where the step split the residual stream by sequence, its norms
+    and the sequence-parallel attention's weights) have their gradients
+    summed over 'model', the attention's weights by a reduce-scatter
+    into their storage block (``grad_pl``); then the loss and each
+    gradient are all-reduced over the batch axes and divided by their
+    number of shards, so they are the global batch's mean; the gradients
+    then keep this rank's block of each parameter's placements.
   * **int8.**  With ``compress_grads`` the round trip runs on the whole
     reduced gradient (gathered over 'model'), its 256-element blocks over
     each leaf as the reference stacks it (``trainer.int8_round_trip``), as
@@ -57,8 +63,8 @@ from torch.distributed.tensor import Replicate
 
 from repro_torch.models.pspec_utils import (NamedPlacements, equivalent,
                                             mesh_axes, move, shard)
-from repro_torch.models.tensor_parallel import (KV_WEIGHTS, PARTIAL_GRADS,
-                                               TensorParallel)
+from repro_torch.models.tensor_parallel import (ATTN_WEIGHTS, KV_WEIGHTS,
+                                               TensorParallel, scatter_sum)
 from repro_torch.models.transformer import Transformer
 from repro_torch.optim import AdamWState, adamw_update
 from repro_torch.train.sharding import (batch_pspec, moment_placements,
@@ -68,12 +74,15 @@ from repro_torch.train.sharding import (batch_pspec, moment_placements,
 def model_parallel(cfg, mesh) -> TensorParallel | None:
     """This rank's share of the mesh's 'model' group, when the model runs
     tensor parallel over it: a 'model' dim of more than one rank,
-    ``cfg.tensor_parallel``, and ``TensorParallel.fits`` (a dense, vlm or
-    moe model whose heads, FFN units and vocabulary split into whole
-    blocks, the kv heads split or shared).  Where ranks share kv heads,
-    their groups are made here, every rank making every group in the same
-    order.  None otherwise (the parameters are then gathered over 'model'
-    too, and every rank of the group runs the same rows)."""
+    ``cfg.tensor_parallel``, and ``TensorParallel.fits`` (every family
+    but the ssm, its FFN units, RG-LRU width and vocabulary splitting
+    into whole blocks).  The residual stream splits by sequence with
+    ``cfg.seq_parallel``; attention splits by heads where
+    ``TensorParallel.heads_split``, else by query sequence (``seq_attn``).
+    Where ranks share kv heads, their groups are made here, every rank
+    making every group in the same order.  None otherwise (the
+    parameters are then gathered over 'model' too, and every rank of the
+    group runs the same rows)."""
     names = mesh.mesh_dim_names
     if "model" not in names:
         return None
@@ -82,7 +91,8 @@ def model_parallel(cfg, mesh) -> TensorParallel | None:
             not TensorParallel.fits(cfg, size):
         return None
     rank = mesh.get_local_rank("model")
-    share = TensorParallel.kv_share_of(cfg, size)
+    heads = TensorParallel.heads_split(cfg, size)
+    share = TensorParallel.kv_share_of(cfg, size) if heads else 1
     kv_group = None
     if share > 1:
         # every 'model' group of the mesh, split into runs of `share`; the
@@ -99,7 +109,7 @@ def model_parallel(cfg, mesh) -> TensorParallel | None:
             [sorted(int(r) for r in row[i:i + share])
              for row in ranks for i in range(0, size, share)])
     return TensorParallel(mesh.get_group("model"), rank, size, kv_group,
-                          share)
+                          share, seq=cfg.seq_parallel, seq_attn=not heads)
 
 
 def batch_rows(mesh, batch_size: int, include_model: bool = False
@@ -137,9 +147,16 @@ class ShardedModel:
         self.moment_pl = moment_placements(self.cfg, mesh)
         self.tp = model_parallel(self.cfg, mesh)
         self.compute_pl = {
-            n: tuple(p if d == "model" and self.tp is not None
-                     else Replicate()
+            n: tuple(p if d == "model" and self._split(n) else Replicate()
                      for d, p in zip(mesh.mesh_dim_names, pl))
+            for n, pl in self.param_pl.items()}
+        # the gradients' layout after reduce: the step's, but a weight the
+        # model runs whole over 'model' under tensor parallelism
+        # (sequence-parallel attention's) keeps its storage block there
+        self.grad_pl = {
+            n: tuple(sp if d == "model" and self._whole_in_tp(n) else cp
+                     for d, cp, sp in zip(mesh.mesh_dim_names,
+                                          self.compute_pl[n], pl))
             for n, pl in self.param_pl.items()}
         with torch.no_grad():
             self.params = {n: shard(p.detach(), mesh, self.param_pl[n])
@@ -157,6 +174,17 @@ class ShardedModel:
         setattr(self.module.get_submodule(mod) if mod else self.module,
                 leaf, nn.Parameter(t, requires_grad=True))
 
+    def _split(self, name: str) -> bool:
+        """Whether the step runs ``name`` split over 'model' as it is
+        stored: under tensor parallelism, all but sequence-parallel
+        attention's weights."""
+        return self.tp is not None and not (
+            self.tp.seq_attn and name.rpartition(".")[2] in ATTN_WEIGHTS)
+
+    def _whole_in_tp(self, name: str) -> bool:
+        """Whether the model runs tensor parallel but ``name`` whole."""
+        return self.tp is not None and not self._split(name)
+
     def _kv(self, name: str) -> bool:
         """Whether ``name`` is a kv projection whose head ranks share."""
         return self.tp is not None and self.tp.kv_share > 1 and \
@@ -165,8 +193,8 @@ class ShardedModel:
     @torch.no_grad()
     def gather(self) -> None:
         """Give the module each parameter's blocks in the layout the step
-        runs (gathered over 'pod' and 'data', and over 'model' unless
-        tensor parallel; a shared kv head's columns gathered in its
+        runs (gathered over 'pod' and 'data', and over 'model' where the
+        step runs it whole; a shared kv head's columns gathered in its
         ``kv_group``)."""
         for n, dt in self.params.items():
             t = move(dt.to_local(), self.mesh, self.param_pl[n],
@@ -202,18 +230,28 @@ class ShardedModel:
         """Every parameter whole, on every rank (a collective)."""
         return {n: dt.full_tensor() for n, dt in self.params.items()}
 
+    def splits(self, batch: dict) -> bool:
+        """Whether the step on ``batch`` splits the residual stream by
+        sequence (``TensorParallel.splits`` of its length: the frames', or
+        the vision tokens' and the tokens')."""
+        return self.tp is not None and self.tp.splits(sum(
+            batch[k].shape[1] for k in ("frames", "vision", "tokens")
+            if k in batch))
+
     # ---- the step's collectives ----
-    def reduce(self, loss, grads: dict, axes: tuple, n: int):
+    def reduce(self, loss, grads: dict, axes: tuple, n: int, seq: bool):
         """Sum the loss and gradients over the batch axes, then divide by
         the number of row blocks; under tensor parallelism first sum the
-        partial gradients of :data:`PARTIAL_GRADS` over 'model', and a
-        shared kv head's over its ``kv_group``, keeping this rank's
-        columns (the step's layout, ``compute_pl``, after)."""
+        partial gradients (``TensorParallel.partial_grads`` of a step that
+        split its sequence, ``seq``, or not) over 'model', and a shared kv
+        head's over its ``kv_group``, keeping this rank's columns.  The
+        gradients are then in ``grad_pl``: a weight the step ran whole
+        over 'model' but stores split (sequence-parallel attention's)
+        keeps its storage block, its partial sums reduce-scattered."""
         if self.tp is not None:
-            for k, g in grads.items():
-                if k.rpartition(".")[2] in PARTIAL_GRADS:
-                    dist.all_reduce(g, group=self.tp.group)
-            grads = {k: self.tp.reduce_kv(g) if self._kv(k) else g
+            partial = self.tp.partial_grads(seq)
+            grads = {k: self._model_reduce(k, g,
+                                           k.rpartition(".")[2] in partial)
                      for k, g in grads.items()}
         if n == 1:
             return loss, grads
@@ -224,16 +262,37 @@ class ShardedModel:
             t.div_(n)
         return loss, grads
 
+    def _model_reduce(self, name: str, g: torch.Tensor, partial: bool
+                      ) -> torch.Tensor:
+        """``name``'s gradient in the step's layout -> in ``grad_pl`` over
+        'model': a partial sum summed (reduce-scattered into its storage
+        block where the step ran the weight whole and stores it split),
+        a shared kv head's summed in its ``kv_group``."""
+        if self._kv(name):
+            return self.tp.reduce_kv(g)
+        p = self.grad_pl[name][self.mesh.mesh_dim_names.index("model")]
+        split = p.is_shard() and self._whole_in_tp(name)
+        if partial and split:
+            return scatter_sum(g, p.dim, self.tp.group, self.tp.size)
+        if partial:
+            dist.all_reduce(g, group=self.tp.group)
+        elif split:
+            return g.chunk(self.tp.size, dim=p.dim)[self.tp.rank] \
+                .contiguous()
+        return g
+
     def whole(self, name: str, g: torch.Tensor) -> torch.Tensor:
-        """A gradient in the step's layout, gathered whole."""
-        pl = self.compute_pl[name]
+        """A gradient laid out ``grad_pl`` (:meth:`reduce`'s), gathered
+        whole."""
+        pl = self.grad_pl[name]
         return move(g, self.mesh, pl, (Replicate(),) * len(pl))
 
     def to_storage(self, name: str, g: torch.Tensor, src=None
                    ) -> torch.Tensor:
         """This rank's block of a gradient in its parameter's placements
-        (``g`` laid out ``src``, the step's layout by default)."""
-        return move(g, self.mesh, src or self.compute_pl[name],
+        (``g`` laid out ``src``, :meth:`reduce`'s ``grad_pl`` by
+        default)."""
+        return move(g, self.mesh, src or self.grad_pl[name],
                     self.param_pl[name])
 
     def clip(self, grads: dict, max_norm: float

@@ -228,7 +228,7 @@ def make_sharded_train_step(cfg: ModelConfig, tc: TrainConfig,
         sm.gather()
         params = dict(sm.module.named_parameters())
         loss, grads = compute_grads(sm.module, params, batch, tc.grad_accum)
-        loss, grads = sm.reduce(loss, grads, axes, n)
+        loss, grads = sm.reduce(loss, grads, axes, n, sm.splits(batch))
         if tc.compress_grads:
             # the round trip over each whole leaf, as the reference's
             # blocks run over its global (layer-stacked) gradient

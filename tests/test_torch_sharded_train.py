@@ -30,13 +30,16 @@ and the round trip off, and 2 with it on, at the same tolerances:
 mixtral-8x7b smoke tensor parallel on each expert's F (its router's
 gradient summed over 'model'), mamba2-370m purely data parallel (its
 rows split over 'model' too) and recurrentgemma-2b at 5 layers (one
-group and a 2-layer tail) gathered over 'model'; their
+group and a 2-layer tail) tensor parallel (its RG-LRU blocks on their
+``d_rnn`` block); their
 placements (the MoE's ``_MOE_3D``, the hybrid's ``groups`` and ``tail``)
 the reference's, and a hybrid checkpoint restored across meshes bit for
 bit.  internvl2-76b (tensor parallel, its patch embeddings before the
-split lookup) and hubert-xlarge (gathered) through
-``make_sharded_train_step`` on explicit batches, against the one-device
-step.
+split lookup) and hubert-xlarge (tensor parallel: heads and GeLU MLP)
+through ``make_sharded_train_step`` on explicit batches, against the
+one-device step.  Every tensor-parallel run here carries its residual
+stream split by sequence (``tests/test_torch_seq_parallel.py`` reads its
+shapes).
 
 Each run starts its own ranks as subprocesses on a free port, with a
 timeout, so a fault cannot hang the suite.
@@ -484,12 +487,14 @@ def test_family_sharded_step_matches_one_process(
     """mixtral runs tensor parallel on each expert's F where 'model' has
     two ranks (routing and dispatch replicated); mamba2
     (``tensor_parallel=False``) is purely data parallel, its rows split
-    over 'model' too, and recurrentgemma (its recurrent blocks) runs
-    gathered over 'model'.  Each within the tolerances above of one
+    over 'model' too, and recurrentgemma runs tensor parallel there too
+    (its RG-LRU blocks on their ``d_rnn`` block, its 4 heads split with
+    its one kv head shared by the 2 ranks), both with the residual stream
+    split by sequence.  Each within the tolerances above of one
     process."""
     got = family_runs[arch, mesh][f"{accum}-{compress}"]
     _assert_matches(got, *family_one_process(arch, accum, compress))
-    assert got["tp"] == (arch == "mixtral-8x7b" and mesh.endswith("x2"))
+    assert got["tp"] == (arch != "mamba2-370m" and mesh.endswith("x2"))
     d, m = (int(x) for x in mesh.split("x"))
     assert got["rows"] == [0, BATCH // (d * m if arch == "mamba2-370m"
                                         else d)]
@@ -550,7 +555,8 @@ def test_sharded_step_trains_vlm_and_audio_batches(arch, shape, tmp_path):
     token pipeline makes neither input): internvl2 tensor parallel at
     model 2 (the patch embeddings enter replicated before the split
     lookup, the loss on the gathered text logits) and on (2, 1); hubert
-    gathered over 'model'.  Within the tolerances above of the
+    tensor parallel at model 2 (its heads and GeLU MLP split, the
+    residual stream by sequence).  Within the tolerances above of the
     one-device ``make_train_step``."""
     from repro_torch.models.transformer import init_params
     from repro_torch.optim import adamw_init
@@ -572,4 +578,4 @@ def test_sharded_step_trains_vlm_and_audio_batches(arch, shape, tmp_path):
         hist.append({k: float(v) for k, v in m.items()})
     _assert_matches(got, hist, {n: p.detach() for n, p in
                                 model.named_parameters()})
-    assert got["tp"] == (arch == "internvl2-76b" and shape[1] == 2)
+    assert got["tp"] == (shape[1] == 2)
