@@ -245,6 +245,9 @@ DRYRUN_CELLS = (("qwen3-8b", "train_4k"), ("qwen3-8b", "decode_32k"),
 DRYRUN_FLOPS_RTOL = 1e-6
 DRYRUN_SHARE = ("minicpm-2b", "train_4k")
 DRYRUN_SHARE_STEPS = 3
+# what the share may hold between steps beyond its arguments (its
+# parameter blocks, moments and batch): the parameters are gathered on use
+DRYRUN_HELD_SLACK = 256 * 2**20
 H100_HBM_BYTES = 80e9
 # full width at 2 layers in float32 (TF32 off): one step on the card
 # against the same step on the CPU, then resume against an unbroken run
@@ -276,6 +279,12 @@ SPLIT_CASES = {"qwen3-8b": {}, "recurrentgemma-2b": {"n_layers": 5,
                "hubert-xlarge": {}}
 SPLIT = dict(batch=8, seq=16, steps=2, lr=1e-3, serve_batch=4,
              serve_seq=20, context=32, decode=3)
+# and over 'data': the same ranks as a (SPLIT_WORLD, 1) mesh, the weights
+# gathered over 'data' where each block uses them and each micro-batch's
+# gradient reduce-scattered into the storage blocks, SPLIT_DATA_ACCUM
+# micro-batches a step, training held against one device the same way
+SPLIT_DATA_CASE = ("qwen3-8b", {})
+SPLIT_DATA_ACCUM = 2
 SPLIT_RTOL, SPLIT_P_ATOL, SPLIT_OUTLIERS = 1e-5, 1e-5, 1e-4
 SPLIT_SERVE_TOL = 1e-4
 SPLIT_TIMEOUT = 300
@@ -2808,8 +2817,9 @@ def dryrun_phase(smi, full: dict, torch, dev) -> dict:
     each cell ``ok`` and tensor parallel, its FLOPs and collective bytes
     equal to the CPU's; the prediction's FLOPs equal to those the FLOP
     counter saw in train_full's step on the card within
-    DRYRUN_FLOPS_RTOL; the real share's step complete and its peak under
-    an H100's 80 GB.  Reported: the card's peak memory over the predicted
+    DRYRUN_FLOPS_RTOL; the real share's step complete, its peak under
+    an H100's 80 GB, and what it holds before the step within
+    DRYRUN_HELD_SLACK of its arguments (no gathered weight).  Reported: the card's peak memory over the predicted
     peak, and the roofline's bound over the measured step (its share of
     the bound), for train_full's step and for the real share."""
     from torch.distributed.device_mesh import init_device_mesh
@@ -2927,6 +2937,11 @@ def dryrun_phase(smi, full: dict, torch, dev) -> dict:
           "dryrun: one rank's share of "
           f"{share['cell']} ran on the card under 80 GB: "
           f"{share['card_max_memory_allocated']}")
+    check(share["card_held_bytes"] <= share["argument_bytes"] +
+          DRYRUN_HELD_SLACK,
+          f"dryrun: one rank's share of {share['cell']} holds its "
+          f"arguments and no gathered weight before the step: "
+          f"{share['card_held_bytes']} vs {share['argument_bytes']}")
     return out
 
 
@@ -3528,13 +3543,15 @@ def mesh_step(torch, dev, mesh, cfg, tc, batch, one_device) -> dict:
 
 def split_parity_phase(torch, smi) -> dict:
     """The split over 'model' on the card (SPLIT_CASES on SPLIT_WORLD
-    ranks, :func:`split_rank`), each case held against one device.
-    Gated: every rank exits 0; each case runs tensor parallel (the
-    hybrid's attention sequence parallel, the others' by heads), its
-    residual stream between blocks a block of the sequence; its train
-    steps' loss and grad norm within SPLIT_RTOL of one device's, its
-    parameters within 4 lr with at most SPLIT_OUTLIERS of them past
-    SPLIT_P_ATOL, and its served logits within SPLIT_SERVE_TOL."""
+    ranks, :func:`split_rank`), and SPLIT_DATA_CASE's training over
+    'data' with SPLIT_DATA_ACCUM micro-batches, each case held against
+    one device.  Gated: every rank exits 0; each 'model' case runs tensor
+    parallel (the hybrid's attention sequence parallel, the others' by
+    heads), its residual stream between blocks a block of the sequence,
+    its served logits within SPLIT_SERVE_TOL; the 'data' case runs its
+    rows a micro-batch at a time; every case's train steps' loss and
+    grad norm within SPLIT_RTOL of one device's, its parameters within 4
+    lr with at most SPLIT_OUTLIERS of them past SPLIT_P_ATOL."""
     import gc
 
     from repro_torch.launch.mesh import free_port
@@ -3569,6 +3586,7 @@ def split_parity_phase(torch, smi) -> dict:
     out = {"phase": "split_parity", "nvidia_smi": smi, "backend": "gloo",
            "world_size": SPLIT_WORLD, "mesh": {"data": 1,
                                                "model": SPLIT_WORLD},
+           "data_mesh": {"data": SPLIT_WORLD, "model": 1},
            "dtype": "float32", "allow_tf32": False, **SPLIT,
            "exits": rcs, "cases": cases,
            "parent_reserved_bytes": torch.cuda.memory_reserved(),
@@ -3577,16 +3595,31 @@ def split_parity_phase(torch, smi) -> dict:
     check(all(rc == 0 for rc in rcs),
           f"split_parity: every rank exits 0: {rcs} "
           f"{[lg.strip().splitlines()[-5:] for lg in logs]}")
-    for arch in SPLIT_CASES:
+    for arch in (*SPLIT_CASES, "data"):
         c = cases[arch]
-        check(c["tp"] and c["seq_attn"] == (arch == "recurrentgemma-2b"),
-              f"split_parity: {arch} runs split over 'model': {c['tp']} "
-              f"(sequence-parallel attention: {c['seq_attn']})")
-        check(c["residual"] == [[SPLIT["batch"],
-                                 SPLIT["seq"] // SPLIT_WORLD,
-                                 c["d_model"]]],
-              f"split_parity: {arch}'s stream between blocks is a block "
-              f"of the sequence: {c['residual']}")
+        if arch == "data":
+            # each rank's rows, a micro-batch at a time, whole sequences
+            rows = SPLIT["batch"] // SPLIT_WORLD
+            check(not c["tp"] and c["rows"] == [0, rows] and
+                  c["residual"] == [[rows // SPLIT_DATA_ACCUM, SPLIT["seq"],
+                                     c["d_model"]]],
+                  f"split_parity: {c['arch']} over 'data' runs its rows "
+                  f"{c['rows']}, {SPLIT_DATA_ACCUM} micro-batches: "
+                  f"{c['residual']}")
+        else:
+            check(c["tp"] and
+                  c["seq_attn"] == (arch == "recurrentgemma-2b"),
+                  f"split_parity: {arch} runs split over 'model': "
+                  f"{c['tp']} (sequence-parallel attention: "
+                  f"{c['seq_attn']})")
+            check(c["residual"] == [[SPLIT["batch"],
+                                     SPLIT["seq"] // SPLIT_WORLD,
+                                     c["d_model"]]],
+                  f"split_parity: {arch}'s stream between blocks is a "
+                  f"block of the sequence: {c['residual']}")
+            check(max(c["serve_rel_err"]) <= 1,
+                  f"split_parity: {arch}'s served logits within "
+                  f"{SPLIT_SERVE_TOL}: {c['serve_max_abs_err']}")
         for g, w in zip(c["history"], c["one_device"]):
             for k in ("loss", "grad_norm"):
                 check(abs(g[k] - w[k]) <= SPLIT_RTOL * abs(w[k]),
@@ -3597,16 +3630,14 @@ def split_parity_phase(torch, smi) -> dict:
               f"split_parity: {arch}'s parameters after the steps: "
               f"{c['params_max_abs_diff']}, {c['params_past_atol']} of "
               f"{c['params']} past {SPLIT_P_ATOL}")
-        check(max(c["serve_rel_err"]) <= 1,
-              f"split_parity: {arch}'s served logits within "
-              f"{SPLIT_SERVE_TOL}: {c['serve_max_abs_err']}")
     return out
 
 
 def split_rank(torch, rank: int, job: dict) -> None:
     """One rank of :func:`split_parity_phase`: every case of SPLIT_CASES
-    split on the (1, world) mesh, and on rank 0 one device's run beside
-    it, rank 0 writing the comparison to ``job["out"]``.  The ranks share
+    split on the (1, world) mesh, SPLIT_DATA_CASE's training on the
+    (world, 1) mesh, and on rank 0 one device's run beside each, rank 0
+    writing the comparison to ``job["out"]``.  The ranks share
     cuda:0 over gloo; the DTensor redistributions of the sharded model
     (``train.parallel``'s ``move``) run staged, on the host copies over a
     CPU mesh of the same ranks."""
@@ -3637,65 +3668,95 @@ def split_rank(torch, rank: int, job: dict) -> None:
     dist.init_process_group("gloo", init_method="tcp://localhost:"
                             f"{job['port']}", world_size=world, rank=rank)
     names = ("data", "model")
-    mesh = init_device_mesh(dev.type, (1, world), mesh_dim_names=names)
-    host = init_device_mesh("cpu", (1, world), mesh_dim_names=names)
+    shapes_of = {"model": (1, world), "data": (world, 1)}
+    meshes = {k: init_device_mesh(dev.type, v, mesh_dim_names=names)
+              for k, v in shapes_of.items()}
+    hosts = {v: init_device_mesh("cpu", v, mesh_dim_names=names)
+             for v in shapes_of.values()}
 
     def staged(local, mesh_, src, dst):
         if equivalent(mesh_, src, dst):
             return local
+        host = hosts[tuple(mesh_.shape)]
         return DTensor.from_local(local.cpu(), host, src).redistribute(
             host, dst).to_local().to(local.device)
 
     tpar.move = staged
     sp, lr = SPLIT, SPLIT["lr"]
-    tc = TrainConfig(lr=lr, warmup_steps=1, total_steps=10)
-    out = {}
-    for arch, over in SPLIT_CASES.items():
-        cfg = get_config(arch, smoke=True).with_(param_dtype="float32",
-                                                 compute_dtype="float32",
-                                                 **over)
+    mesh = meshes["model"]
 
-        def model():
-            return init_params(cfg, torch.Generator(dev).manual_seed(0),
-                               dev)
+    def config(arch, over):
+        return get_config(arch, smoke=True).with_(param_dtype="float32",
+                                                  compute_dtype="float32",
+                                                  **over)
 
-        rng = np.random.default_rng(0)
-        b, s = sp["batch"], sp["seq"]
-        if cfg.is_encoder:
-            batches = [{"frames": torch.from_numpy(rng.normal(size=(
-                b, s, cfg.frontend_dim)).astype(np.float32)).to(dev),
-                "labels": torch.from_numpy(rng.integers(
-                    0, cfg.vocab_size, (b, s))).to(dev)}
-                for _ in range(sp["steps"])]
-        else:
-            batches = [{"tokens": torch.from_numpy(rng.integers(
-                0, cfg.vocab_size, (b, s))).to(dev)}
-                for _ in range(sp["steps"])]
+    def model(cfg):
+        return init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+
+    def train(cfg, mesh_, tc, batches):
+        """The split steps on ``mesh_``: (the facts and history, every
+        parameter gathered whole)."""
         moments = resolve_moment_dtype(cfg.moment_dtype)
-        # the split steps
-        sm = tpar.ShardedModel(model().requires_grad_(True), mesh)
+        sm = tpar.ShardedModel(model(cfg).requires_grad_(True), mesh_)
         shapes = set()
         for blk in sm.module.blocks:
             blk.register_forward_hook(
                 lambda m, i, o: shapes.add(tuple(o.shape)))
         opt = sm.init_opt(moments)
-        rows = tpar.batch_rows(mesh, b)
+        rows = tpar.batch_rows(mesh_, sp["batch"])
         step = make_sharded_train_step(cfg, tc, rows)
         hist = []
-        with activation_sharding(mesh):
+        with activation_sharding(mesh_):
             for bt in batches:
                 sm, opt, m = step(sm, opt, {k: v[rows[0]]
                                             for k, v in bt.items()})
                 hist.append({k: float(v) for k, v in m.items()})
         whole = (Replicate(),) * 2
-        got_p = {n: staged(d.to_local(), mesh, sm.param_pl[n], whole)
+        got_p = {n: staged(d.to_local(), mesh_, sm.param_pl[n], whole)
                  for n, d in sm.params.items()}
         tp = sm.tp
-        res = {"tp": tp is not None,
-               "seq_attn": bool(tp is not None and tp.seq_attn),
-               "residual": sorted(shapes), "d_model": cfg.d_model,
-               "history": hist}
-        del sm, opt
+        return {"tp": tp is not None,
+                "seq_attn": bool(tp is not None and tp.seq_attn),
+                "residual": sorted(shapes), "d_model": cfg.d_model,
+                "rows": [rows[0].start, rows[0].stop],
+                "history": hist}, got_p
+
+    def one_device(res, cfg, tc, batches, got_p):
+        """Rank 0's one-device steps on the whole batches beside the
+        split ones."""
+        one = model(cfg)
+        step1 = make_train_step(cfg, tc)
+        opt1 = adamw_init(dict(one.named_parameters()),
+                          resolve_moment_dtype(cfg.moment_dtype))
+        res["one_device"] = []
+        for bt in batches:
+            one, opt1, m = step1(one, opt1, bt)
+            res["one_device"].append({k: float(v) for k, v in m.items()})
+        diffs = [(got_p[n] - p.detach()).abs()
+                 for n, p in one.named_parameters()]
+        res["params"] = sum(d.numel() for d in diffs)
+        res["params_max_abs_diff"] = max(float(d.max()) for d in diffs)
+        res["params_past_atol"] = sum(int((d > SPLIT_P_ATOL).sum())
+                                      for d in diffs)
+
+    def batches_of(cfg, rng):
+        b, s = sp["batch"], sp["seq"]
+        if cfg.is_encoder:
+            return [{"frames": torch.from_numpy(rng.normal(size=(
+                b, s, cfg.frontend_dim)).astype(np.float32)).to(dev),
+                "labels": torch.from_numpy(rng.integers(
+                    0, cfg.vocab_size, (b, s))).to(dev)}
+                for _ in range(sp["steps"])]
+        return [{"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (b, s))).to(dev)}
+            for _ in range(sp["steps"])]
+
+    tc = TrainConfig(lr=lr, warmup_steps=1, total_steps=10)
+    out = {}
+    for arch, over in SPLIT_CASES.items():
+        cfg = config(arch, over)
+        batches = batches_of(cfg, np.random.default_rng(0))
+        res, got_p = train(cfg, mesh, tc, batches)
         # the served path
         g = torch.Generator(dev).manual_seed(1)
         sb, ss = sp["serve_batch"], sp["serve_seq"]
@@ -3707,7 +3768,7 @@ def split_rank(torch, rank: int, job: dict) -> None:
         if cfg.is_encoder:
             frames = torch.randn(sb, ss, cfg.frontend_dim, generator=g,
                                  device=dev)
-            srv = ShardedServer(model(), mesh, decode=False, context=ss)
+            srv = ShardedServer(model(cfg), mesh, decode=False, context=ss)
             r = srv.rows(sb)
             got = [whole_vocab(srv, srv.encode(frames[r]))]
         else:
@@ -3715,37 +3776,24 @@ def split_rank(torch, rank: int, job: dict) -> None:
                                  device=dev)
             nxt = torch.randint(0, cfg.vocab_size, (sp["decode"], sb, 1),
                                 generator=g, device=dev)
-            srv = ShardedServer(model(), mesh, decode=False,
+            srv = ShardedServer(model(cfg), mesh, decode=False,
                                 context=sp["context"])
             r = srv.rows(sb)
             lp, block = srv.prefill(toks[r])
             got = [whole_vocab(srv, lp)]
-            dec = ShardedServer(model(), mesh, decode=True,
+            dec = ShardedServer(model(cfg), mesh, decode=True,
                                 context=sp["context"])
             for i in range(sp["decode"]):
                 lg, block = dec.decode_step(nxt[i][r], block)
                 got.append(lg)
         if rank == 0:
             # one device: the same steps and serving
-            one = model()
-            step1 = make_train_step(cfg, tc)
-            opt1 = adamw_init(dict(one.named_parameters()), moments)
-            res["one_device"] = []
-            for bt in batches:
-                one, opt1, m = step1(one, opt1, bt)
-                res["one_device"].append({k: float(v)
-                                          for k, v in m.items()})
-            diffs = [(got_p[n] - p.detach()).abs()
-                     for n, p in one.named_parameters()]
-            res["params"] = sum(d.numel() for d in diffs)
-            res["params_max_abs_diff"] = max(float(d.max()) for d in diffs)
-            res["params_past_atol"] = sum(int((d > SPLIT_P_ATOL).sum())
-                                          for d in diffs)
+            one_device(res, cfg, tc, batches, got_p)
             with torch.inference_mode():
                 if cfg.is_encoder:
-                    want = [model()(frames=frames)]
+                    want = [model(cfg)(frames=frames)]
                 else:
-                    ref = model()
+                    ref = model(cfg)
                     lp, cache = prefill(ref, toks, sp["context"])
                     want = [lp]
                     for i in range(sp["decode"]):
@@ -3759,6 +3807,18 @@ def split_rank(torch, rank: int, job: dict) -> None:
                 for a, w in zip(got, want)]
             out[arch] = res
         dist.barrier()
+    # over 'data', with micro-batches: training only
+    arch, over = SPLIT_DATA_CASE
+    cfg = config(arch, over)
+    tc = TrainConfig(lr=lr, warmup_steps=1, total_steps=10,
+                     grad_accum=SPLIT_DATA_ACCUM)
+    batches = batches_of(cfg, np.random.default_rng(0))
+    res, got_p = train(cfg, meshes["data"], tc, batches)
+    if rank == 0:
+        one_device(res, cfg, tc, batches, got_p)
+        out["data"] = dict(res, arch=arch, grad_accum=SPLIT_DATA_ACCUM,
+                           mesh=list(shapes_of["data"]))
+    dist.barrier()
     if rank == 0:
         Path(job["out"]).write_text(json.dumps(out))
     dist.barrier()

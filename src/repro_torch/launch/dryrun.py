@@ -23,7 +23,10 @@ stands for one rank of the production mesh:
     collectives' bytes by kind, and the bytes the eager step moves) and
     ``MemTracker`` (the peak of this rank's tensors, started after the
     sharded state exists, counting its parameter and moment blocks, the
-    batch and the cache as arguments);
+    batch and the cache as arguments: all a rank holds between steps,
+    since each weight is gathered inside the step where it is used,
+    once a micro-batch in the forward and again in remat's recompute,
+    and each gradient reduce-scattered there);
   * ``roofline_from_terms`` on those numbers, on H100 constants.
 
 Results go to ``results/dryrun_torch/<arch>__<shape>__<mesh>.json`` (or

@@ -358,7 +358,7 @@ class TensorParallel:
         return gather_cat(cols, -1, self.kv_group, self.kv_share)
 
     def reduce_kv(self, g: torch.Tensor) -> torch.Tensor:
-        """A kv head's gradient (D, hd), this rank's queries' share ->
+        """A kv head's gradient (rows, hd), this rank's queries' share ->
         the sum over ``kv_group``, this rank's stored columns of it."""
         if self.kv_share == 1:
             return g

@@ -50,7 +50,11 @@ the FFN units, the RG-LRU width and the vocabulary split, and with
 rank's block of the sequence (the embedding's sum reduce-scattered by
 sequence, gathered before the head).  Without it no collective runs.
 The reference's layer and group scans are a Python loop over the
-blocks.
+blocks.  Every read of a weight goes through ``Block.params`` or
+:meth:`Transformer.weight`; a sharded model installs a source there
+(:meth:`Transformer.read_from`), so each weight is gathered when it is
+used, inside a block's checkpointed region under remat, as XLA gathers
+inside the reference's scan body.
 """
 from __future__ import annotations
 
@@ -292,6 +296,7 @@ class Block(nn.Module):
         _register(self, block_param_spec(cfg, kind), _dtype(cfg), device)
         self.program = None         # the logic FFN's compiled program
         self.tp = None              # its TensorParallel share, if split
+        self.source = None          # where its weights are read, if not here
 
     def _tp_in(self, h, seq: bool = False):
         return h if self.tp is None else self.tp.enter(h, seq)
@@ -300,7 +305,12 @@ class Block(nn.Module):
         return y if self.tp is None else self.tp.exit(y, seq)
 
     def params(self) -> dict:
-        return dict(self.named_parameters(recurse=False))
+        """The block's weights by name: its own parameters, or, once a
+        source is installed (:meth:`Transformer.read_from`), each read
+        from it now (a sharded model's gather on use)."""
+        if self.source is None:
+            return dict(self.named_parameters(recurse=False))
+        return {k: self.source(k) for k in self.init_kinds}
 
     def ffn(self, p: dict, h: torch.Tensor) -> torch.Tensor:
         if self.kind == "moe":
@@ -388,6 +398,26 @@ class Transformer(nn.Module):
         self.blocks = nn.ModuleList(Block(cfg, kind, self.device)
                                     for kind in layer_kinds(cfg))
         self.tp = None
+        self.source = None
+
+    def weight(self, name: str) -> torch.Tensor:
+        """A top-level weight (``embed``, ``final_norm``, ``lm_head``,
+        ``head``, ``frontend_proj``): the module's own, or its source's."""
+        return getattr(self, name) if self.source is None else \
+            self.source(name)
+
+    def read_from(self, source) -> None:
+        """Read every weight from ``source(name)`` (``name`` the state
+        dict's) when it is used, and drop the module's own parameters: a
+        sharded model's gather on use (``train.parallel.ShardedModel``).
+        ``Block.params`` and :meth:`weight` then return what the source
+        gives."""
+        mods = [("", self)] + [(f"blocks.{i}.", b)
+                               for i, b in enumerate(self.blocks)]
+        for prefix, mod in mods:
+            for k in list(mod._parameters):
+                delattr(mod, k)
+            mod.source = partial(_read, source, prefix)
 
     def set_tensor_parallel(self, tp) -> None:
         """Run as one rank's share of a 'model' group
@@ -434,7 +464,7 @@ class Transformer(nn.Module):
                 vision.shape[1] if vlm else 0)
         seq = self.tp is not None and self.tp.splits(s)
         if audio:
-            x = frames.to(cdt) @ self.frontend_proj.to(cdt)
+            x = frames.to(cdt) @ self.weight("frontend_proj").to(cdt)
             if seq:
                 x = self.tp.split(x, 1)
         else:
@@ -453,7 +483,7 @@ class Transformer(nn.Module):
         decode layout, ``param_pspecs(decode=True)``: the columns looked
         up here and gathered)."""
         tokens = torch.as_tensor(tokens, device=self.device)
-        table = self.embed.to(_cdtype(self.cfg))
+        table = self.weight("embed").to(_cdtype(self.cfg))
         if self.tp is not None and table.shape[0] != self.cfg.padded_vocab:
             return self.tp.embed(tokens, table, seq, prefix)
         # the lookup as F.embedding: the same rows, and a backward that
@@ -492,7 +522,7 @@ class Transformer(nn.Module):
             else:
                 x = remat(blk, x, positions, seq)
             x = constrain(x, "dp", seq_ax, None)
-        x = rms_norm(x, self.final_norm)
+        x = rms_norm(x, self.weight("final_norm"))
         return self.lm_logits(x, gather, seq)
 
     def lm_logits(self, x: torch.Tensor, gather: bool = True,
@@ -503,11 +533,11 @@ class Transformer(nn.Module):
         the columns.  With ``seq`` ``x`` is this rank's block of the
         sequence (B, S / size, D), all-gathered before the head."""
         if self.cfg.family == "audio":
-            head = self.head
+            head = self.weight("head")
         elif self.cfg.tie_embeddings:
-            head = self.embed.T
+            head = self.weight("embed").T
         else:
-            head = self.lm_head
+            head = self.weight("lm_head")
         vocab_split = self.tp is not None and \
             head.shape[0] == self.cfg.d_model and \
             head.shape[1] != self.cfg.padded_vocab
@@ -534,6 +564,10 @@ class Transformer(nn.Module):
             logits[..., self.cfg.vocab_size:] = -1e30
         spec = ["dp"] + [None] * (logits.ndim - 2) + ["model"]
         return constrain(logits, *spec)
+
+
+def _read(source, prefix: str, name: str) -> torch.Tensor:
+    return source(prefix + name)
 
 
 # the reference's jax.checkpoint policies: "dots" saves the outputs of the

@@ -195,7 +195,7 @@ def decode_step(model: Transformer, tokens: torch.Tensor,
                          length=cache.length)
             x = _attn_block_step(blk, x, cfg, kv)
             ia += 1
-    x = rms_norm(x, model.final_norm)
+    x = rms_norm(x, model.weight("final_norm"))
     return model.lm_logits(x), cache._replace(length=cache.length + 1)
 
 
@@ -250,5 +250,5 @@ def prefill(model: Transformer, tokens: torch.Tensor, context: int, *,
     cache = DecodeCache(**{k: torch.stack(ts).contiguous()
                            for k, ts in got.items() if ts},
                         length=positions.shape[1])
-    x = rms_norm(x, model.final_norm)
+    x = rms_norm(x, model.weight("final_norm"))
     return model.lm_logits(x, False, seq), cache

@@ -8,8 +8,10 @@ XLA place the collectives.  Here they are explicit.  Each rank
 
   * holds its blocks of the parameters (a ``train.parallel.ShardedModel``;
     the decode layout splits the embedding by ``d_model`` over 'model')
-    and gathers them at the start of every step over 'pod' and 'data',
-    and over 'model' only what the model runs whole
+    and gathers each layer's when the layer runs (the embedding, final
+    norm and head where the step reaches them), dropping them after, so
+    no copy of the whole share stays between layers or calls: over 'pod'
+    and 'data', and over 'model' only what the model runs whole
     (``train.parallel.model_parallel``: every family but the ssm runs
     tensor parallel, each rank its FFN units, RG-LRU channels and
     vocabulary, and its query heads where they divide 'model', ranks
@@ -175,7 +177,6 @@ class ShardedServer:
         block).  Under tensor parallelism the logits are this rank's
         block of the vocabulary, as the reference's prefill returns them
         (sharded over 'model')."""
-        self.sm.gather()
         return prefill(self.model, tokens, self.context, vision=vision,
                        keep=self._keep)
 
@@ -183,7 +184,6 @@ class ShardedServer:
     def encode(self, frames) -> torch.Tensor:
         """An encoder's forward (audio: the prefill cell) of this rank's
         rows of ``frames``; the logits split as :meth:`prefill`'s."""
-        self.sm.gather()
         return self.model(frames=frames, gather=False)
 
     # ---- decode ----
@@ -193,7 +193,6 @@ class ShardedServer:
         """``serve.engine.decode_step`` of this rank's rows ``tokens`` (B,
         1) on its cache block, written in place: (their logits, the cache
         with ``length + 1``)."""
-        self.sm.gather()
         model, cfg = self.model, self.cfg
         x = model.lookup(tokens)
         ia = iss = irec = 0
@@ -210,7 +209,7 @@ class ShardedServer:
                 x = self._attn_block(blk, x, attn.KVCache(
                     k=cache.kv_k[ia], v=cache.kv_v[ia], length=cache.length))
                 ia += 1
-        x = rms_norm(x, model.final_norm)
+        x = rms_norm(x, model.weight("final_norm"))
         return model.lm_logits(x), cache._replace(length=cache.length + 1)
 
     def _step_states(self, cache, state: str, conv: str, i: int, step,

@@ -2,46 +2,63 @@
 and Megatron tensor parallelism over 'model', on a DeviceMesh.
 
 The reference jits its step with ``train/sharding.py``'s shardings and
-lets XLA's SPMD partitioner place the collectives.  Here they are
-explicit, around the one-device step's arithmetic:
+lets XLA's SPMD partitioner place the collectives: it scans the layers
+over layer-stacked weights and the micro-batches over the batch, so each
+layer's weights are gathered inside the scan body where they are used,
+and each gradient leaves by a reduce-scatter into its parameter's
+sharding.  Here the same collectives are explicit, around the one-device
+step's arithmetic:
 
   * **Storage.**  Every parameter is a DTensor with
     ``sharding.param_placements`` (``Shard`` on the mesh dims its rule
-    names, ``Replicate`` elsewhere), every AdamW moment a DTensor with
-    ``sharding.moment_placements`` (the parameter's, plus ZeRO over
-    'pod').
-  * **Gather.**  Before a step each parameter is all-gathered over 'pod'
-    and 'data' (FSDP's all-gather on use).  Over 'model' it stays split
-    where the model runs tensor parallel (:func:`model_parallel`: every
-    family but the ssm, whose FFN units (each expert's), RG-LRU width and
-    vocabulary split into whole blocks; ``models/tensor_parallel.py``),
-    and is gathered too otherwise (the ssm, ``tensor_parallel=False``).
-    Where the query heads do not divide 'model', attention runs
-    sequence parallel and its weights (``wq``, ``wk``, ``wv``, ``wo``)
-    are gathered over 'model' for the step while their storage stays
-    split.  Where 'model' has more ranks than the model kv heads, ranks
-    share a head: each gathers its head's columns from the ranks storing
-    them.  On a mesh dim of one rank nothing moves: on a (1, 1) mesh the
-    model's parameters are the DTensors' own local tensors.
+    names, ``Replicate`` elsewhere) over this rank's block (the leaf the
+    step differentiates and AdamW updates), every AdamW moment a DTensor
+    with ``sharding.moment_placements`` (the parameter's, plus ZeRO over
+    'pod').  Between steps a rank holds these and nothing else: the
+    model's whole parameters are released when the blocks are cut.
+  * **Gather on use.**  The model reads every weight through
+    :meth:`ShardedModel.weight` (``Transformer.read_from``) when it uses
+    it: a block's weights when the block runs (inside its checkpointed
+    region under remat, so the backward's recompute gathers them again),
+    the embedding, final norm and head where the forward reaches them.
+    Each is all-gathered then from its storage block over 'pod' and
+    'data' and dropped after.  Over 'model' it stays split where the
+    model runs tensor parallel (:func:`model_parallel`: every family but
+    the ssm, whose FFN units (each expert's), RG-LRU width and vocabulary
+    split into whole blocks; ``models/tensor_parallel.py``), and is
+    gathered too otherwise (the ssm, ``tensor_parallel=False``).  Where
+    the query heads do not divide 'model', attention runs sequence
+    parallel and its weights (``wq``, ``wk``, ``wv``, ``wo``) are
+    gathered over 'model' while their storage stays split.  Where 'model'
+    has more ranks than the model kv heads, ranks share a head: each
+    gathers its head's columns from the ranks storing them.  On a mesh
+    dim of one rank nothing moves: on a (1, 1) mesh the model reads the
+    storage blocks themselves.
   * **Batch.**  Each rank runs its rows of the global batch
     (``sharding.batch_pspec``: the rows split over the batch axes, mesh
     order major first; 'model' is one of them for a config with
     ``tensor_parallel=False``, the reference's pure data parallelism),
-    with the one-device step's micro-batch loop.
-  * **Reduce.**  The replicated weights a rank used on its own share
-    (``TensorParallel.partial_grads``: the router, the per-head norms,
-    and where the step split the residual stream by sequence, its norms
-    and the sequence-parallel attention's weights) have their gradients
-    summed over 'model', the attention's weights by a reduce-scatter
-    into their storage block (``grad_pl``); then the loss and each
-    gradient are all-reduced over the batch axes and divided by their
-    number of shards, so they are the global batch's mean; the gradients
-    then keep this rank's block of each parameter's placements.
+    with the one-device step's micro-batch loop, its float32
+    accumulators in the storage blocks' shapes.
+  * **Reduce-scatter on use.**  The gather's backward
+    (:class:`_GatherOnUse`) sums each micro-batch's gradient over the
+    dims it gathered on which the ranks' shares differ (the batch axes;
+    'model' for sequence-parallel attention's weights where the step
+    split the sequence, ``TensorParallel.partial_grads``) by a
+    reduce-scatter into this rank's storage block, cuts the block out
+    where they do not, and sums a shared kv head's over its
+    ``kv_group``.  After the micro-batches :meth:`ShardedModel.reduce`
+    does what is left: the replicated weights' partial sums over 'model'
+    (the router, the per-head norms, and where the step split the
+    residual stream by sequence, its norms) and the all-reduce over the
+    batch axes a leaf is stored whole on ('pod'), then the division by
+    the number of row blocks, so the gradients are the global batch's
+    mean in the storage blocks.
   * **int8.**  With ``compress_grads`` the round trip runs on the whole
-    reduced gradient (gathered over 'model'), its 256-element blocks over
-    each leaf as the reference stacks it (``trainer.int8_round_trip``), as
-    without a mesh.  The reference's step keeps no error-feedback state,
-    so neither does this one.
+    reduced gradient (gathered from the storage blocks), its 256-element
+    blocks over each leaf as the reference stacks it
+    (``trainer.int8_round_trip``), as without a mesh.  The reference's
+    step keeps no error-feedback state, so neither does this one.
   * **Clip.**  The global norm sums each leaf's squares once (on the rank
     at coordinate 0 of every mesh dim the leaf is replicated over), then
     all-reduces the sum over the mesh.
@@ -58,7 +75,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch import nn
 from torch.distributed.tensor import Replicate
 
 from repro_torch.models.pspec_utils import (NamedPlacements, equivalent,
@@ -132,13 +148,33 @@ def batch_rows(mesh, batch_size: int, include_model: bool = False
     return slice(idx * per, (idx + 1) * per), axes, n
 
 
+class _GatherOnUse(torch.autograd.Function):
+    """A leaf's storage block -> the block the step runs
+    (:meth:`ShardedModel.gather`); the gradient, summed over the ranks
+    whose shares of it differ, back to the storage block
+    (:meth:`ShardedModel.scatter`)."""
+
+    @staticmethod
+    def forward(ctx, local, sm, name):
+        ctx.sm, ctx.name, ctx.summed = sm, name, sm.summed(name)
+        return sm.gather(name, local)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.sm.scatter(ctx.name, g, ctx.summed), None, None
+
+
 class ShardedModel:
-    """A model's parameters as DTensors on ``mesh`` (``params``, by name),
-    and ``module``, the model the step runs, whose parameters are the
-    gathered blocks (:meth:`gather`).  Built from a model every rank
-    initialized whole from the same seed, each rank keeping its blocks.
-    ``decode`` lays the parameters out as the reference's decode step
-    does (``param_placements(decode=True)``: the embedding split by
+    """A model's parameters as DTensors on ``mesh`` (``params``, by name)
+    over this rank's storage blocks (``leaves``, the tensors the step
+    differentiates and AdamW updates), and ``module``, the model the step
+    runs.  The module keeps no parameter of its own: it reads each weight
+    through :meth:`weight` when it uses it (``Transformer.read_from``),
+    gathered from the storage block then and dropped after.  Built from a
+    model every rank initialized whole from the same seed, each rank
+    keeping its blocks; the whole parameters are released.  ``decode``
+    lays the parameters out as the reference's decode step does
+    (``param_placements(decode=True)``: the embedding split by
     ``d_model`` over 'model')."""
 
     def __init__(self, model: Transformer, mesh, decode: bool = False):
@@ -150,29 +186,21 @@ class ShardedModel:
             n: tuple(p if d == "model" and self._split(n) else Replicate()
                      for d, p in zip(mesh.mesh_dim_names, pl))
             for n, pl in self.param_pl.items()}
-        # the gradients' layout after reduce: the step's, but a weight the
-        # model runs whole over 'model' under tensor parallelism
-        # (sequence-parallel attention's) keeps its storage block there
-        self.grad_pl = {
-            n: tuple(sp if d == "model" and self._whole_in_tp(n) else cp
-                     for d, cp, sp in zip(mesh.mesh_dim_names,
-                                          self.compute_pl[n], pl))
-            for n, pl in self.param_pl.items()}
+        named = dict(model.named_parameters())
         with torch.no_grad():
             self.params = {n: shard(p.detach(), mesh, self.param_pl[n])
-                           for n, p in model.named_parameters()}
+                           for n, p in named.items()}
+        self.leaves = {n: dt.to_local().detach().requires_grad_(
+            named[n].requires_grad) for n, dt in self.params.items()}
+        del named
+        self.axes, self.seq = (), False
         if self.tp is not None:
             model.set_tensor_parallel(self.tp)
-        self.gather()
+        model.read_from(self.weight)
 
     @property
     def device(self) -> torch.device:
         return self.module.device
-
-    def _set(self, name: str, t: torch.Tensor) -> None:
-        mod, _, leaf = name.rpartition(".")
-        setattr(self.module.get_submodule(mod) if mod else self.module,
-                leaf, nn.Parameter(t, requires_grad=True))
 
     def _split(self, name: str) -> bool:
         """Whether the step runs ``name`` split over 'model' as it is
@@ -181,25 +209,73 @@ class ShardedModel:
         return self.tp is not None and not (
             self.tp.seq_attn and name.rpartition(".")[2] in ATTN_WEIGHTS)
 
-    def _whole_in_tp(self, name: str) -> bool:
-        """Whether the model runs tensor parallel but ``name`` whole."""
-        return self.tp is not None and not self._split(name)
-
     def _kv(self, name: str) -> bool:
         """Whether ``name`` is a kv projection whose head ranks share."""
         return self.tp is not None and self.tp.kv_share > 1 and \
             name.rpartition(".")[2] in KV_WEIGHTS
 
-    @torch.no_grad()
-    def gather(self) -> None:
-        """Give the module each parameter's blocks in the layout the step
-        runs (gathered over 'pod' and 'data', and over 'model' where the
-        step runs it whole; a shared kv head's columns gathered in its
-        ``kv_group``)."""
-        for n, dt in self.params.items():
-            t = move(dt.to_local(), self.mesh, self.param_pl[n],
-                     self.compute_pl[n])
-            self._set(n, self.tp.gather_kv(t) if self._kv(n) else t)
+    # ---- gather on use ----
+    def trainable(self, axes: tuple, seq: bool) -> dict:
+        """The storage blocks, by name, with their gradients on, for a
+        step whose rows split over the mesh dims ``axes`` and whose
+        residual stream splits by sequence with ``seq``
+        (:meth:`splits`): what :meth:`summed` reads."""
+        self.axes, self.seq = tuple(axes), seq
+        return {n: t.requires_grad_(True) for n, t in self.leaves.items()}
+
+    def summed(self, name: str) -> frozenset:
+        """The mesh dims over which ``name``'s gradient on this rank is a
+        partial sum: the step's batch axes, and 'model' for a weight the
+        model runs on this rank's share alone
+        (``TensorParallel.partial_grads``)."""
+        dims = set(self.axes)
+        if self.tp is not None and \
+                name.rpartition(".")[2] in self.tp.partial_grads(self.seq):
+            dims.add("model")
+        return frozenset(dims)
+
+    def weight(self, name: str) -> torch.Tensor:
+        """``name`` in the layout the step runs, gathered now from this
+        rank's storage block (the module's every read of a weight comes
+        here).  Where autograd records, through :class:`_GatherOnUse`, so
+        the gradient leaves in the storage block; the storage block itself
+        where nothing moves (every dim the layouts differ on has one rank,
+        as on a (1, 1) mesh)."""
+        leaf = self.leaves[name]
+        if equivalent(self.mesh, self.param_pl[name],
+                      self.compute_pl[name]) and not self._kv(name):
+            return leaf
+        if torch.is_grad_enabled() and leaf.requires_grad:
+            return _GatherOnUse.apply(leaf, self, name)
+        return self.gather(name, leaf)
+
+    def gather(self, name: str, local: torch.Tensor) -> torch.Tensor:
+        """``name``'s storage block ``local`` -> its block in the layout
+        the step runs (gathered over 'pod' and 'data', and over 'model'
+        where the step runs it whole; a shared kv head's columns gathered
+        in its ``kv_group``)."""
+        t = move(local, self.mesh, self.param_pl[name], self.compute_pl[name])
+        return self.tp.gather_kv(t) if self._kv(name) else t
+
+    def scatter(self, name: str, g: torch.Tensor, summed: frozenset
+                ) -> torch.Tensor:
+        """The gradient of :meth:`gather`'s output -> this rank's storage
+        block of it: on each mesh dim :meth:`gather` joined,
+        reduce-scattered where the ranks' shares differ (``summed``) and
+        cut to this rank's block where they are the same; then a shared kv
+        head's summed in its ``kv_group`` (last, on the smallest block:
+        the head's ranks hold the same rows of it)."""
+        mesh = self.mesh
+        for d, cp, sp, size in zip(mesh.mesh_dim_names, self.compute_pl[name],
+                                   self.param_pl[name], mesh.shape):
+            if size == 1 or not (sp.is_shard() and cp.is_replicate()):
+                continue
+            if d in summed:
+                g = scatter_sum(g, sp.dim, mesh.get_group(d), size)
+            else:
+                g = g.chunk(size, dim=sp.dim)[mesh.get_local_rank(d)] \
+                    .contiguous()
+        return self.tp.reduce_kv(g) if self._kv(name) else g
 
     def init_opt(self, moment_dtype) -> AdamWState:
         """Zero AdamW moments with ``moment_placements``."""
@@ -239,61 +315,39 @@ class ShardedModel:
             if k in batch))
 
     # ---- the step's collectives ----
-    def reduce(self, loss, grads: dict, axes: tuple, n: int, seq: bool):
-        """Sum the loss and gradients over the batch axes, then divide by
-        the number of row blocks; under tensor parallelism first sum the
-        partial gradients (``TensorParallel.partial_grads`` of a step that
-        split its sequence, ``seq``, or not) over 'model', and a shared kv
-        head's over its ``kv_group``, keeping this rank's columns.  The
-        gradients are then in ``grad_pl``: a weight the step ran whole
-        over 'model' but stores split (sequence-parallel attention's)
-        keeps its storage block, its partial sums reduce-scattered."""
-        if self.tp is not None:
-            partial = self.tp.partial_grads(seq)
-            grads = {k: self._model_reduce(k, g,
-                                           k.rpartition(".")[2] in partial)
-                     for k, g in grads.items()}
+    def reduce(self, loss, grads: dict, n: int):
+        """What is left of the sums after the micro-batches, each of whose
+        gradients left :meth:`scatter` as a storage block: each gradient
+        all-reduced over the dims of :meth:`summed` it is stored whole on
+        (a replicated weight's partial sums over 'model', the batch axes
+        the leaf is replicated over), then the loss over the batch axes,
+        and both divided by the number of row blocks ``n``."""
+        names = self.mesh.mesh_dim_names
+        sizes = dict(zip(names, self.mesh.shape))
+        for k, g in grads.items():
+            summed = self.summed(k)
+            for d, p in zip(names, self.param_pl[k]):
+                if d in summed and p.is_replicate() and sizes[d] > 1:
+                    dist.all_reduce(g, group=self.mesh.get_group(d))
         if n == 1:
             return loss, grads
         loss = loss.clone()
+        for a in self.axes:
+            dist.all_reduce(loss, group=self.mesh.get_group(a))
         for t in (loss, *grads.values()):
-            for a in axes:
-                dist.all_reduce(t, group=self.mesh.get_group(a))
             t.div_(n)
         return loss, grads
 
-    def _model_reduce(self, name: str, g: torch.Tensor, partial: bool
-                      ) -> torch.Tensor:
-        """``name``'s gradient in the step's layout -> in ``grad_pl`` over
-        'model': a partial sum summed (reduce-scattered into its storage
-        block where the step ran the weight whole and stores it split),
-        a shared kv head's summed in its ``kv_group``."""
-        if self._kv(name):
-            return self.tp.reduce_kv(g)
-        p = self.grad_pl[name][self.mesh.mesh_dim_names.index("model")]
-        split = p.is_shard() and self._whole_in_tp(name)
-        if partial and split:
-            return scatter_sum(g, p.dim, self.tp.group, self.tp.size)
-        if partial:
-            dist.all_reduce(g, group=self.tp.group)
-        elif split:
-            return g.chunk(self.tp.size, dim=p.dim)[self.tp.rank] \
-                .contiguous()
-        return g
-
     def whole(self, name: str, g: torch.Tensor) -> torch.Tensor:
-        """A gradient laid out ``grad_pl`` (:meth:`reduce`'s), gathered
-        whole."""
-        pl = self.grad_pl[name]
+        """A gradient's storage block, gathered whole."""
+        pl = self.param_pl[name]
         return move(g, self.mesh, pl, (Replicate(),) * len(pl))
 
-    def to_storage(self, name: str, g: torch.Tensor, src=None
-                   ) -> torch.Tensor:
-        """This rank's block of a gradient in its parameter's placements
-        (``g`` laid out ``src``, :meth:`reduce`'s ``grad_pl`` by
-        default)."""
-        return move(g, self.mesh, src or self.grad_pl[name],
-                    self.param_pl[name])
+    def to_storage(self, name: str, g: torch.Tensor) -> torch.Tensor:
+        """This rank's storage block of a gradient every rank holds
+        whole."""
+        pl = self.param_pl[name]
+        return move(g, self.mesh, (Replicate(),) * len(pl), pl)
 
     def clip(self, grads: dict, max_norm: float
              ) -> tuple[dict, torch.Tensor]:

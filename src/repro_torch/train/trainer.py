@@ -30,8 +30,9 @@ feed either; they train through :func:`make_train_step`.
 With a mesh (``Trainer(..., mesh=)``, a ``torch.distributed``
 ``DeviceMesh`` with dims ('data', 'model') or ('pod', 'data', 'model'))
 the step is :func:`make_sharded_train_step`: the reference's FSDP x TP
-shardings as DTensor placements, each rank its rows of the batch, the
-gradient reduced over the batch axes (``train/parallel.py``); the loop
+shardings as DTensor placements, each rank its rows of the batch, each
+weight gathered when the model uses it and its gradient reduce-scattered
+back into the storage block (``train/parallel.py``); the loop
 runs under ``activation_sharding(mesh)``, and checkpoints gather each
 leaf whole (rank 0 writes) and restore onto the trainer's placements.
 Without a mesh nothing changes.  PyTorch runs eagerly, so there is no
@@ -47,7 +48,6 @@ from typing import Callable
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import Replicate
 
 from repro_torch.convert import reference_layout
 from repro_torch.data.synthetic import TokenPipeline
@@ -159,7 +159,8 @@ def compute_grads(model: Transformer, params: dict, batch: dict,
     """(loss, {name: gradient}) of ``batch`` with respect to ``params``:
     with ``grad_accum`` k > 1 the batch's leading dim is split in order
     into k micro-batches, each one's gradient divided by k and summed
-    into float32 accumulators, and the loss is the mean of theirs."""
+    into float32 accumulators of ``params``' shapes (a sharded step's
+    storage blocks), and the loss is the mean of theirs."""
     if grad_accum <= 1:
         loss, grads = _grads_of(model, params, batch)
         return loss, dict(zip(params, grads))
@@ -216,29 +217,29 @@ def make_sharded_train_step(cfg: ModelConfig, tc: TrainConfig,
                             rows: tuple) -> Callable:
     """``train_step(sharded, opt_state, batch) -> (sharded, opt_state,
     metrics)`` for a :class:`~repro_torch.train.parallel.ShardedModel`:
-    the step of :func:`make_train_step` on this rank's rows (``batch``),
-    with the gradient reduced over the batch axes and the clip and AdamW
-    on each rank's blocks (``train/parallel.py``).  ``rows`` is
-    ``parallel.batch_rows``'s (slice, axes, n)."""
+    the step of :func:`make_train_step` on this rank's rows (``batch``)
+    with respect to the storage blocks, each weight gathered where the
+    model uses it and each micro-batch's gradient reduce-scattered into
+    float32 accumulators of the storage blocks' shapes, then reduced over
+    the batch axes, and the clip and AdamW on each rank's blocks
+    (``train/parallel.py``).  ``rows`` is ``parallel.batch_rows``'s
+    (slice, axes, n)."""
     lr_fn = make_lr_fn(tc)
     resolve_moment_dtype(cfg.moment_dtype)
     _, axes, n = rows
 
     def train_step(sm: ShardedModel, opt_state: AdamWState, batch: dict):
-        sm.gather()
-        params = dict(sm.module.named_parameters())
+        # the storage blocks: each micro-batch's gradient reaches them
+        # reduce-scattered by the gathers' backward
+        params = sm.trainable(axes, sm.splits(batch))
         loss, grads = compute_grads(sm.module, params, batch, tc.grad_accum)
-        loss, grads = sm.reduce(loss, grads, axes, n, sm.splits(batch))
+        loss, grads = sm.reduce(loss, grads, n)
         if tc.compress_grads:
             # the round trip over each whole leaf, as the reference's
             # blocks run over its global (layer-stacked) gradient
             whole = int8_round_trip({k: sm.whole(k, g)
                                      for k, g in grads.items()}, cfg)
-            replicated = (Replicate(),) * sm.mesh.ndim
-            grads = {k: sm.to_storage(k, g, replicated)
-                     for k, g in whole.items()}
-        else:
-            grads = {k: sm.to_storage(k, g) for k, g in grads.items()}
+            grads = {k: sm.to_storage(k, g) for k, g in whole.items()}
         grads, gnorm = sm.clip(grads, tc.clip_norm)
         new_opt = sm.adamw(grads, opt_state, lr=lr_fn,
                            weight_decay=tc.weight_decay)
