@@ -69,11 +69,13 @@ fall.  ``dryrun``: the dry run's cells (qwen3-8b train_4k and
 decode_32k, minicpm-2b and recurrentgemma-2b train_4k, the last two split
 over 'model' by sequence and by ``d_rnn``) at pod1 on fake CUDA tensors
 against the committed CPU counts, train_full's step against its
-prediction, and one real rank's share of minicpm-2b train_4k pod1 (16 x
-4,096 tokens at full width under a fake 256-rank group) against its
-predicted peak and roofline bound.  ``train_parity``: the same widths at
-2 layers in float32, one step
-on the card against the CPU, and a resumed run against an unbroken one.
+prediction, and one real rank's share of three pod1 cells at full width
+under a fake 256-rank group, one of each step kind (minicpm-2b train_4k,
+16 x 4,096 tokens; qwen3-8b prefill_32k, 2 x 32,768; qwen3-8b
+decode_32k, 8 rows against the split cache), each against its predicted
+peak, kernels' temporaries included, and its roofline bound.
+``train_parity``: the same widths at 2 layers in float32, one step on
+the card against the CPU, and a resumed run against an unbroken one.
 ``sharded_train``: the sharded trainer on a one-rank NCCL group and its
 (1, 1) mesh, one full-width float32 step against the one-device step and
 every leaf's placements against the rule table, then minicpm-2b at full
@@ -102,13 +104,13 @@ forward), every request finished with in-vocabulary ids.  They launch no
 ported kernel.
 
 Last the same families trained at full width in bf16
-(``train_families``, one line each): mamba2-370m and recurrentgemma-2b
-through ``launch/train.py``'s Trainer with their checkpoints,
-mixtral-8x7b (2 of 32 layers), internvl2-76b (2 of 80 layers, 256 stub
-patch embeddings + 256 tokens) and hubert-xlarge (512 frames with
-labels) through ``make_train_step``; each with the loss falling on a
-fixed batch and a float32 step card against CPU, mixtral's also on a
-one-rank (1, 1) mesh.
+(``train_families``, one line each): mamba2-370m (16 of 48 layers) and
+recurrentgemma-2b (8 of 26) through ``launch/train.py``'s Trainer with
+their checkpoints, mixtral-8x7b (2 of 32 layers), internvl2-76b (2 of 80
+layers, 256 stub patch embeddings + 256 tokens) and hubert-xlarge (16 of
+48 layers, 512 frames with labels) through ``make_train_step``; each
+with the loss falling on a fixed batch and a float32 step card against
+CPU, mixtral's also on a one-rank (1, 1) mesh.
 
 Output, one JSON object per line: ``env``, ``build``, ``parity``,
 ``main_path``, ``timing``, ``engine``, ``sharded_serving``, ``xnor``,
@@ -237,17 +239,26 @@ BF16_FLOPS_PER_S = 989e12
 # 256-rank group, fake CUDA tensors) in subprocesses, held against the
 # results the CPU's fake tensors gave (results/dryrun_torch); train_full's
 # own cell (TRAIN_FULL on one rank) held against the step train_full ran
-# on the card; and DRYRUN_SHARE, one rank's share of a pod1 cell run for
-# real on the card under the fake group (its collectives move nothing)
+# on the card; and DRYRUN_SHARES, one rank's share of a pod1 cell of each
+# step kind run for real on the card under the fake group (its
+# collectives move nothing): minicpm-2b train_4k (sequence-parallel
+# attention, backward, remat), qwen3-8b prefill_32k (heads split over
+# 'model', a kv head shared, 2 rows x 32,768 tokens) and decode_32k (one
+# token against the split cache, 8 rows)
 DRYRUN_CELLS = (("qwen3-8b", "train_4k"), ("qwen3-8b", "decode_32k"),
                 ("minicpm-2b", "train_4k"), ("recurrentgemma-2b",
                                              "train_4k"))
 DRYRUN_FLOPS_RTOL = 1e-6
-DRYRUN_SHARE = ("minicpm-2b", "train_4k")
+DRYRUN_SHARES = (("minicpm-2b", "train_4k"), ("qwen3-8b", "prefill_32k"),
+                 ("qwen3-8b", "decode_32k"))
 DRYRUN_SHARE_STEPS = 3
-# what the share may hold between steps beyond its arguments (its
-# parameter blocks, moments and batch): the parameters are gathered on use
+# what a share may hold before its step beyond its arguments (parameter
+# blocks, moments and batch; a serving step's weights' blocks and cache):
+# the parameters are gathered on use
 DRYRUN_HELD_SLACK = 256 * 2**20
+# the card's peak over the dry run's predicted peak, for train_full's
+# step and each share
+DRYRUN_MEMORY_RATIO = (0.95, 1.10)
 H100_HBM_BYTES = 80e9
 # full width at 2 layers in float32 (TF32 off): one step on the card
 # against the same step on the CPU, then resume against an unbroken run
@@ -312,7 +323,9 @@ FAMILIES = {
 # the families' training at full width (train_families): bf16 with each
 # config's moment dtype and remat, TRAIN_FAMILY's rows x positions a
 # step, no accumulation.  Per model: "layers", the depth (None: whole; a
-# cut only where 80 GB forces it, listed under "reduced"); "route",
+# cut where 80 GB forces it, or, for mamba2, recurrentgemma and hubert,
+# to keep the script inside its time limit; listed under "reduced");
+# "route",
 # launch/train.py's build (its Trainer and final checkpoint) or
 # make_train_step on explicit batches (the vlm's "vision" stub patch
 # embeddings before its tokens, the audio's frames with labels: the
@@ -325,10 +338,10 @@ FAMILIES = {
 # one-rank NCCL (1, 1) mesh
 TRAIN_FAMILIES = {
     "mixtral-8x7b": dict(layers=2, route="step", parity=1, mesh=True),
-    "mamba2-370m": dict(layers=None, route="launcher", parity=2),
-    "recurrentgemma-2b": dict(layers=None, route="launcher", parity=5),
+    "mamba2-370m": dict(layers=16, route="launcher", parity=2),
+    "recurrentgemma-2b": dict(layers=8, route="launcher", parity=5),
     "internvl2-76b": dict(layers=2, route="step", parity=1, vision=256),
-    "hubert-xlarge": dict(layers=None, route="step", parity=2),
+    "hubert-xlarge": dict(layers=16, route="step", parity=2),
 }
 TRAIN_FAMILY = dict(steps=4, global_batch=8, seq_len=512)
 # the fixed-batch descent: a batch the run has not seen (batch 0, seen in
@@ -2732,18 +2745,23 @@ def train_full_phase(args, torch, dev, smi) -> dict:
 
 
 def dryrun_share(torch, dev, arch: str, shape: str) -> dict:
-    """One rank's share of the pod1 cell ``arch`` x ``shape`` for real on
-    ``dev``: ``dryrun.measure_cell(..., fake=False)``'s two halves (its
+    """One rank's share of the pod1 cell ``arch`` x ``shape`` (a train,
+    prefill or decode step) for real on ``dev``:
+    ``dryrun.measure_cell(..., fake=False)``'s two halves (its
     ``build_step`` with weights from seed 0, then its ``measure``) under a
     fake 256-rank group on the production mesh, whose collectives move
     nothing, so the arithmetic and the memory are one rank's at full
     width.  Then DRYRUN_SHARE_STEPS more steps timed with CUDA events.
     Beside the committed CPU prediction of the same cell: the card's peak
     over the predicted peak (and what the card holds before the step
-    against the arguments the prediction counts, and its peak over the
-    timed steps, without the counters), and the step time over the
-    roofline's bound without its collective term (nothing crosses a link
-    here)."""
+    against the arguments the prediction counts: a train step's
+    parameter and moment blocks and batch, a serving step's weights'
+    blocks, tokens and cache; and its peak over the timed steps, without
+    the counters), the kernels' temporaries the prediction counts, and
+    the step time over the roofline's bound without its collective term
+    (nothing crosses a link here)."""
+    import gc
+
     from repro_torch.configs import get_config
     from repro_torch.configs.registry import SHAPES
     from repro_torch.launch import dryrun
@@ -2752,6 +2770,10 @@ def dryrun_share(torch, dev, arch: str, shape: str) -> dict:
     cfg, cell = get_config(arch), SHAPES[shape]
     cpu = json.loads((dryrun.RESULTS_DIR / f"{arch}__{shape}__pod1.json")
                      .read_text())
+    # what an earlier phase or share left in reference cycles is freed
+    # now, not by a collection inside the step, where it would lower the
+    # peak read against this base
+    gc.collect()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated(dev)
     t0 = time.perf_counter()
@@ -2791,6 +2813,8 @@ def dryrun_share(torch, dev, arch: str, shape: str) -> dict:
             "flops": m["flops"], "flops_equal_cpu":
                 m["flops"] == cpu["flops_per_device"],
             "tracked_peak_bytes": m["peak_bytes"],
+            "temp_bytes": m["temp_bytes"], "temp_at_peak": m["temp_at_peak"],
+            "predicted_temp_at_peak": cpu["memory"]["temp_at_peak"],
             "card_max_memory_allocated": peak,
             "card_held_bytes": held,
             "argument_bytes": sum(m["argument_bytes"].values()),
@@ -2812,16 +2836,18 @@ def dryrun_phase(smi, full: dict, torch, dev) -> dict:
     tensors gave (``results/dryrun_torch``).  Meanwhile train_full's own
     cell (minicpm-2b, TRAIN_FULL's batch and micro-batches, one rank)
     predicted in this process (fake CUDA tensors; the CPU's where
-    PyTorch is built without CUDA, ``dryrun.fake_device``), and
-    DRYRUN_SHARE run for real on the card (:func:`dryrun_share`).  Gated:
-    each cell ``ok`` and tensor parallel, its FLOPs and collective bytes
-    equal to the CPU's; the prediction's FLOPs equal to those the FLOP
-    counter saw in train_full's step on the card within
-    DRYRUN_FLOPS_RTOL; the real share's step complete, its peak under
-    an H100's 80 GB, and what it holds before the step within
-    DRYRUN_HELD_SLACK of its arguments (no gathered weight).  Reported: the card's peak memory over the predicted
-    peak, and the roofline's bound over the measured step (its share of
-    the bound), for train_full's step and for the real share."""
+    PyTorch is built without CUDA, ``dryrun.fake_device``), and each of
+    DRYRUN_SHARES run for real on the card (:func:`dryrun_share`).
+    Gated: each cell ``ok`` and tensor parallel, its FLOPs and collective
+    bytes equal to the CPU's; the prediction's FLOPs equal to those the
+    FLOP counter saw in train_full's step on the card within
+    DRYRUN_FLOPS_RTOL; each real share's steps complete, its FLOPs equal
+    to the committed CPU count, its peak under an H100's 80 GB, and what
+    it holds before the step within DRYRUN_HELD_SLACK of its arguments
+    (no gathered weight); the card's peak over the predicted peak within
+    DRYRUN_MEMORY_RATIO for train_full's step and for each share.
+    Reported: the roofline's bound over the measured step (its share of
+    the bound), for train_full's step and for each share."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.configs import get_config
@@ -2857,7 +2883,7 @@ def dryrun_phase(smi, full: dict, torch, dev) -> dict:
                 pred = dryrun.measure_cell(cfg, cell, mesh, device=device,
                                            train_accum=tf["grad_accum"])
             pred_s = time.perf_counter() - t0
-            share = dryrun_share(torch, dev, *DRYRUN_SHARE)
+            shares = [dryrun_share(torch, dev, *c) for c in DRYRUN_SHARES]
             cells = {}
             for (arch, shape), (t0, proc) in procs.items():
                 log, _ = proc.communicate(timeout=900)
@@ -2917,9 +2943,10 @@ def dryrun_phase(smi, full: dict, torch, dev) -> dict:
         "step_s_p50": tr["step_s_p50"],
         "share_of_bound": bound_s / tr["step_s_p50"],
         "compute_share": terms.compute_s / tr["step_s_p50"]}
-    out["share"] = share
+    out["shares"] = shares
     out["phase_s"] = time.perf_counter() - t_phase
     emit(out)
+    lo, hi = DRYRUN_MEMORY_RATIO
     for name, c in cells.items():
         check(c["exit"] == 0 and c["ok"],
               f"dryrun: {name} ran ok: {c['log']} {c.get('error')}")
@@ -2931,17 +2958,29 @@ def dryrun_phase(smi, full: dict, torch, dev) -> dict:
     check(out["train_full_cell"]["flops_rel_err"] <= DRYRUN_FLOPS_RTOL,
           "dryrun: the predicted FLOPs of train_full's step equal the "
           f"card's count: {pred['flops']} vs {counted}")
-    check(share["tensor_parallel"] and len(share["step_s"]) ==
-          DRYRUN_SHARE_STEPS and
-          share["card_max_memory_allocated"] < H100_HBM_BYTES,
-          "dryrun: one rank's share of "
-          f"{share['cell']} ran on the card under 80 GB: "
-          f"{share['card_max_memory_allocated']}")
-    check(share["card_held_bytes"] <= share["argument_bytes"] +
-          DRYRUN_HELD_SLACK,
-          f"dryrun: one rank's share of {share['cell']} holds its "
-          f"arguments and no gathered weight before the step: "
-          f"{share['card_held_bytes']} vs {share['argument_bytes']}")
+    ratio = out["train_full_cell"]["memory_ratio"]
+    check(lo <= ratio <= hi,
+          f"dryrun: train_full's peak on the card is {ratio:.4f} x the "
+          f"predicted peak, within {DRYRUN_MEMORY_RATIO}")
+    for share in shares:
+        check(share["tensor_parallel"] and len(share["step_s"]) ==
+              DRYRUN_SHARE_STEPS and
+              share["card_max_memory_allocated"] < H100_HBM_BYTES,
+              "dryrun: one rank's share of "
+              f"{share['cell']} ran on the card under 80 GB: "
+              f"{share['card_max_memory_allocated']}")
+        check(share["flops_equal_cpu"],
+              f"dryrun: one rank's share of {share['cell']} counts the "
+              f"CPU's FLOPs: {share['flops']}")
+        check(share["card_held_bytes"] <= share["argument_bytes"] +
+              DRYRUN_HELD_SLACK,
+              f"dryrun: one rank's share of {share['cell']} holds its "
+              f"arguments and no gathered weight before the step: "
+              f"{share['card_held_bytes']} vs {share['argument_bytes']}")
+        check(lo <= share["memory_ratio"] <= hi,
+              f"dryrun: one rank's share of {share['cell']} peaks at "
+              f"{share['memory_ratio']:.4f} x the predicted peak, within "
+              f"{DRYRUN_MEMORY_RATIO}")
     return out
 
 
@@ -3255,6 +3294,19 @@ def train_batch(torch, cfg, rows: int, positions: int, vision: int,
     return out
 
 
+@contextlib.contextmanager
+def launcher_config(launch_train, cfg):
+    """``launch_train.build`` trains ``cfg`` (its arch, perhaps cut in
+    depth) for the life of the context: the launcher reads the arch's
+    config through its module's ``get_config``."""
+    whole = launch_train.get_config
+    launch_train.get_config = lambda arch, smoke=False: cfg
+    try:
+        yield
+    finally:
+        launch_train.get_config = whole
+
+
 def train_family_case(args, torch, dev, smi, arch, plan) -> dict:
     """One family trained at full width in bf16 (the config's moment
     dtype and remat), random weights from ``--seed``: (a)
@@ -3322,12 +3374,13 @@ def train_family_case(args, torch, dev, smi, arch, plan) -> dict:
             out["disk"] = need_disk(scratch_dir(), ckpt_need, cfg.name)
             ckdir = tempfile.mkdtemp(prefix="train_families.",
                                      dir=scratch_dir())
-            trainer, _ = launch_train.build([
-                "--arch", arch, "--steps", str(tf["steps"]),
-                "--global-batch", str(rows), "--seq-len", str(positions),
-                "--checkpoint-dir", ckdir,
-                "--checkpoint-every", str(10 * tf["steps"]),
-                "--device", str(dev)])
+            with launcher_config(launch_train, cfg):
+                trainer, _ = launch_train.build([
+                    "--arch", arch, "--steps", str(tf["steps"]),
+                    "--global-batch", str(rows), "--seq-len",
+                    str(positions), "--checkpoint-dir", ckdir,
+                    "--checkpoint-every", str(10 * tf["steps"]),
+                    "--device", str(dev)])
             check(trainer.cfg == cfg, f"{cfg.name}: the launcher's config")
             saves = timed_saves(trainer)
             hist = trainer.run(tf["steps"], log_every=0)

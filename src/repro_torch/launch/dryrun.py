@@ -26,7 +26,9 @@ stands for one rank of the production mesh:
     batch and the cache as arguments: all a rank holds between steps,
     since each weight is gathered inside the step where it is used,
     once a micro-batch in the forward and again in remat's recompute,
-    and each gradient reduce-scattered there);
+    and each gradient reduce-scattered there; and, for the ops of
+    :data:`TEMPORARIES`, the temporary their CUDA kernel allocates beside
+    its outputs, which a dispatch mode cannot see: ``temp_bytes``);
   * ``roofline_from_terms`` on those numbers, on H100 constants.
 
 Results go to ``results/dryrun_torch/<arch>__<shape>__<mesh>.json`` (or
@@ -46,6 +48,7 @@ import argparse
 import contextlib
 import json
 import os
+import threading
 import time
 import traceback
 from pathlib import Path
@@ -53,7 +56,12 @@ from pathlib import Path
 import torch
 import torch.distributed as dist
 from torch._subclasses.fake_tensor import FakeTensorMode
-from torch.distributed._tools.mem_tracker import MemTracker
+from torch.distributed._tools.mem_tracker import (_TOTAL_KEY, MemTracker,
+                                                  _MemRefType)
+from torch.distributed.tensor import DTensor
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _disable_current_modes)
+from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs.registry import (ARCH_IDS, SHAPES, ShapeCell,
@@ -195,12 +203,99 @@ def build_step(cfg, cell: ShapeCell, mesh, *, device, train_accum: int = 1,
          "cache": fields}, facts(server.tp)
 
 
+def _softmax_backward(grad_output, output, dim, input_dtype) -> int:
+    """``aten/src/ATen/native/cuda/SoftMax.cu``,
+    ``softmax_backward_cuda_out``: ``Tensor tmp = grad * output;`` is
+    what ``host_softmax_backward`` reads as the gradient, one tensor of
+    the gradient's shape in the product's dtype, live beside the op's
+    output until the op returns."""
+    dtype = torch.promote_types(grad_output.dtype, output.dtype)
+    return grad_output.numel() * dtype.itemsize
+
+
+class _Allocations(TorchDispatchMode):
+    """The bytes of the storages the ops under it allocate (each output
+    storage that no tensor before it had)."""
+
+    def __init__(self, held) -> None:
+        super().__init__()
+        self.seen = {t.untyped_storage()._cdata for t in held}
+        self.nbytes = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                st = t.untyped_storage()
+                if st._cdata not in self.seen:
+                    self.seen.add(st._cdata)
+                    self.nbytes += st.nbytes()
+        return out
+
+
+def _einsum(equation, operands, path=None) -> int:
+    """``aten/src/ATen/native/Linear.cpp``, ``einsum`` and
+    ``sumproduct_pair``: each operand permuted to (batch, kept, summed)
+    dims and reshaped to the 3-D ``bmm`` operand, a contiguous copy
+    wherever that reshape is not a view, both copies live while ``bmm``
+    writes the output.  Where autograd is off (``inference_mode``) the
+    op reaches the tracker whole and those copies run inside it: what
+    its decomposition allocates beyond the output, counted by running
+    it on meta tensors of the operands' sizes and strides."""
+    with _disable_current_modes(), torch.inference_mode(False):
+        metas = [torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                     device="meta") for t in operands]
+        with _Allocations(metas) as allocs:
+            out = torch.ops.aten.einsum.default(equation, metas, path=path)
+    return allocs.nbytes - out.untyped_storage().nbytes()
+
+
+#: The temporaries an op's CUDA kernel allocates inside itself, below the
+#: dispatcher, where ``MemTracker`` (a dispatch mode, which sees each op's
+#: outputs) cannot see them; on fake tensors they do not exist.  Op
+#: overload -> their bytes as a function of the op's arguments, each
+#: rule read from the ATen source it cites and held against the card
+#: (``tests/test_torch_dryrun_temporaries.py``, ``tools/torch_memtrace.py``).
+TEMPORARIES = {
+    torch.ops.aten._softmax_backward_data.default: _softmax_backward,
+    torch.ops.aten.einsum.default: _einsum,
+}
+
+
+def temporary_bytes(func, args, kwargs) -> int:
+    """The bytes ``func``'s CUDA kernel allocates beside its outputs for
+    these arguments (:data:`TEMPORARIES`; 0 for any other op)."""
+    rule = TEMPORARIES.get(func)
+    return 0 if rule is None else int(rule(*args, **kwargs))
+
+
 class StepMemTracker(MemTracker):
-    """``MemTracker`` over a step that runs the model more than once
-    (gradient accumulation's micro-batches): where the model's forward
-    starts again, the per-module statistics of the last micro-batch are
-    dropped (``reset_mod_stats``) instead of refused.  The peak, which is
-    all the dry run reads, runs on across them."""
+    """``MemTracker`` counting what the card allocates.
+
+    Two changes to its peak: an op of :data:`TEMPORARIES` adds its
+    kernel's temporary to the running total of its device for the op's
+    duration (the peak taken after the op's outputs exist sees both),
+    each op's largest temporary kept by name in ``temp_bytes``, its
+    calls in ``temp_calls``, and the temporary live at each device's
+    peak summed in :attr:`temp_at_peak`; and over a step that runs the
+    model more than once (gradient accumulation's micro-batches), where
+    the model's forward starts again, the per-module statistics of the
+    last micro-batch are dropped (``reset_mod_stats``) instead of
+    refused.  The peak, which is all the dry run reads, runs on across
+    them."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        # the running op's (name, device, temporary), per thread: the
+        # backward runs ops on the autograd engine's threads
+        self._running = threading.local()
+        self._peak_temp: dict[torch.device, int] = {}
+        self.temp_bytes: dict[str, int] = {}
+        self.temp_calls: dict[str, int] = {}
+
+    @property
+    def temp_at_peak(self) -> int:
+        return sum(self._peak_temp.values())
 
     def _pre_fw_hook(self, module, inputs) -> None:
         if module in self.memory_tracking and not self._mod_tracker.is_bw \
@@ -209,12 +304,51 @@ class StepMemTracker(MemTracker):
             self.reset_mod_stats()
         super()._pre_fw_hook(module, inputs)
 
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        # a DTensor op desugars into local ops, which come back here
+        temp = 0 if any(issubclass(t, DTensor) for t in types) else \
+            temporary_bytes(func, args, kwargs or {})
+        dev = next(t.device for t in tree_leaves(args)
+                   if isinstance(t, torch.Tensor)) if temp else None
+        self._running.op = (str(func), dev, temp) if temp else None
+        try:
+            return super().__torch_dispatch__(func, types, args, kwargs)
+        finally:
+            self._running.op = None
+
+    def _update_peak_stats(self, peak_state) -> None:
+        # the tracker calls this once an op's outputs are counted
+        before = dict(self._peak_mem)
+        op = getattr(self._running, "op", None)
+        if op is None:
+            super()._update_peak_stats(peak_state)
+        else:
+            name, dev, temp = op
+            self.temp_bytes[name] = max(self.temp_bytes.get(name, 0), temp)
+            self.temp_calls[name] = self.temp_calls.get(name, 0) + 1
+            snap = self._curr_mem_snap.setdefault(
+                dev, dict.fromkeys((*_MemRefType, _TOTAL_KEY), 0))
+            snap[_MemRefType.TEMP] += temp
+            snap[_TOTAL_KEY] += temp
+            try:
+                super()._update_peak_stats(peak_state)
+            finally:
+                snap[_MemRefType.TEMP] -= temp
+                snap[_TOTAL_KEY] -= temp
+                if snap[_TOTAL_KEY] == 0:
+                    del self._curr_mem_snap[dev]
+        for d, peak in self._peak_mem.items():
+            if peak != before.get(d):
+                self._peak_temp[d] = op[2] if op and op[1] == d else 0
+
 
 def measure(step, args: dict) -> dict:
     """Run ``step`` once under the FLOP counter, :class:`CommCounter` and
-    ``MemTracker`` (its peak counting ``args``' tensors as held before
-    the step): FLOPs, bytes moved, collective bytes and counts by kind,
-    argument bytes by kind and the peak."""
+    :class:`StepMemTracker` (its peak counting ``args``' tensors as held
+    before the step and the kernels' temporaries): FLOPs, bytes moved,
+    collective bytes and counts by kind, argument bytes by kind, the
+    peak, and the temporaries (each op's largest, its calls, and the one
+    live at the peak)."""
     mt = StepMemTracker()
     held = [t for ts in args.values() for t in ts]
     mt.track_external(*held)
@@ -222,7 +356,7 @@ def measure(step, args: dict) -> dict:
     comm = rf.CommCounter()
     with flops, comm, mt:
         step()
-    peak = sum(s.get("Total", 0) for s in
+    peak = sum(s.get(_TOTAL_KEY, 0) for s in
                mt.get_tracker_snapshot("peak").values())
     arg_bytes = {k: _nbytes(v) for k, v in args.items()}
     return {"flops": float(flops.get_total_flops()),
@@ -230,7 +364,10 @@ def measure(step, args: dict) -> dict:
             "collectives": dict(comm.collectives),
             "collective_counts": dict(comm.counts),
             "argument_bytes": arg_bytes,
-            "peak_bytes": int(peak)}
+            "peak_bytes": int(peak),
+            "temp_bytes": dict(mt.temp_bytes),
+            "temp_calls": dict(mt.temp_calls),
+            "temp_at_peak": mt.temp_at_peak}
 
 
 def measure_cell(cfg, cell: ShapeCell, mesh, *, device="cuda",
@@ -297,7 +434,10 @@ def run_cell(arch: str, shape: str, multi_pod: bool, force: bool = False,
             "flops_over_model_flops_per_chip": m["flops"] / (mflops / chips),
             "collective_counts": m["collective_counts"],
             "memory": {"argument_bytes": sum(args.values()),
-                       "by_kind": args, "peak_bytes": m["peak_bytes"]},
+                       "by_kind": args, "peak_bytes": m["peak_bytes"],
+                       "temp_bytes": m["temp_bytes"],
+                       "temp_calls": m["temp_calls"],
+                       "temp_at_peak": m["temp_at_peak"]},
             "fits_h100": m["peak_bytes"] <= H100_HBM_BYTES,
             "roofline": terms.to_dict(),
         })
