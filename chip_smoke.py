@@ -57,8 +57,10 @@ binarized, converted to gate programs from calibration bits and run
 through K1 (the logic-FFN swap).  ``lm``: qwen3-8b at full width and depth
 from random weights, prefill plus decode held against the forward in
 float32, then served in bf16 by the continuous-batching launcher.  The
-front door's phase ends with the reference's own 2x load point, whose
-latency bound is reported, and the warm-start phase audits its store with
+front door's phase ends with the reference's own 2x load point, run three
+times without a profiler (and once more under it), each run with its
+host-clock breakdown and the median held to the reference's latency
+bound (reported), and the warm-start phase audits its store with
 ``repro_torch.tools.verify_program``.
 
 Then LM training.  ``train_full``: minicpm-2b at its full config (2.7 B
@@ -202,11 +204,15 @@ FD_LIGHT_LOAD, FD_LIGHT_REQUESTS = 0.2, 400
 FD_OVERLOAD, FD_OVERLOAD_REQUESTS = 4.0, 1200
 FD_SAT_S = 1.0
 FD_FAULTS = dict(seed=7, drop_rate=0.02, delay_rate=0.02, delay_s=0.002)
-# the reference's own 2x load point (tests/test_frontdoor.py:400-447): the
+# the reference's own 2x load point (tests/test_frontdoor.py:379-447): the
 # unloaded p99 from sequential requests, 2 x capacity / wave / 24 requests
 # a second split over a Poisson and a Pareto tenant, eviction and delay
-# faults; its bound 3 x unloaded p99 + 75 ms is reported, not gated
+# faults, FD2X_RUNS runs without a profiler; its bound 3 x unloaded p99 +
+# 75 ms against their median p99 is reported, not gated: the store reload
+# of the evicted 36.8k-gate program alone (52-98 ms in the copied
+# ArtifactStore.load on an H100 80GB HBM3 at 700 W) is about the bound
 FD2X_SEQUENTIAL, FD2X_REQUESTS, FD2X_SIZE_MAX, FD2X_DEADLINE_S = 20, 50, 96, 0.4
+FD2X_RUNS = 3
 FD2X_FAULTS = dict(seed=5, evict_rate=0.2, delay_rate=0.1, delay_s=0.002)
 # the LM serving path: qwen3-8b at full width and depth; parity in float32
 # on LM_PARITY_TOKENS tokens (prefill all but the last LM_PARITY_DECODE,
@@ -1369,6 +1375,225 @@ def trace_summary(res: dict, waves: int, deadline_s: float) -> dict:
             "requests_per_wave": res["completed"] / max(1, waves)}
 
 
+#: The host-clock spans :func:`door_spans` records (ms per call): the
+#: door's waves (``FrontDoor._step``, eviction fault included) and within
+#: them the runners (H2D, pack, K2, unpack, D2H); a
+#: program cache miss served from the store (``reload``), its
+#: ``ArtifactStore.load`` (``store_load``) and in that the rebuild of the
+#: graph from its arrays (``store_graph``), the rebuilt graph's
+#: fingerprint (``store_fingerprint``) and the checksums
+#: (``store_digest``); the runner build after it (``build_runner``, its
+#: ``megaprogram()``, ``mega_arrays`` and, in that, ``launch_records`` as
+#: ``records``); a dispatch that drew an injected delay
+#: (``delayed_dispatch``); the cyclic collector's pauses (``gc``).
+SPANS = ("wave", "runner", "step_rest", "reload", "store_load",
+         "store_graph", "store_fingerprint", "store_digest",
+         "build_runner", "megaprogram", "mega_arrays", "records",
+         "delayed_dispatch", "gc")
+
+
+@contextlib.contextmanager
+def door_spans(door):
+    """Time where a door's host time goes while the context lasts: wraps
+    methods of this door's own instances (door, engine, program cache,
+    store, fault policy, the cached entries' runners) and the two module
+    functions a runner build calls, and registers a ``gc.callbacks`` hook;
+    every wrapper is removed on exit, and no class is touched.  Yields
+    ``{span: [ms, ...]}`` over :data:`SPANS`, plus ``reload_in_wave`` (one
+    bool a reload), ``gc_generation`` and ``gc_in`` (a pause's generation
+    and the innermost span it interrupted, ``loop`` for none); spans
+    nest, so a pause also counts in the spans around it.  ``step_rest``
+    is each engine step less the runner, reload and runner build inside
+    it (slot table, slab, scatter)."""
+    import gc
+    import threading
+
+    from repro_torch.core import artifact_store
+    from repro_torch.kernels.logic_dsp import ops
+    from repro_torch.serve import logic_engine
+
+    spans = {k: [] for k in (*SPANS, "reload_in_wave", "gc_generation",
+                             "gc_in")}
+    engine, cache = door.engine, door.engine.cache
+    local = threading.local()   # the step and the spans open on a thread
+    undo, runner_dicts = [], []
+
+    def put(owner, name, fn):
+        mine = name in vars(owner)
+        undo.append((owner, name, mine, vars(owner).get(name)))
+        setattr(owner, name, fn)
+
+    @contextlib.contextmanager
+    def inside(label):                  # the innermost span, for gc_in
+        stack = local.__dict__.setdefault("stack", [])
+        stack.append(label)
+        try:
+            yield
+        finally:
+            stack.pop()
+
+    def timed(label, fn, *, top=False):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                with inside(label):
+                    return fn(*a, **kw)
+            finally:
+                ms = (time.perf_counter() - t0) * 1e3
+                spans[label].append(ms)
+                if top and getattr(local, "nested", None) is not None:
+                    local.nested += ms
+        call.__wrapped__ = fn
+        return call
+
+    def wrap_runners(entry):
+        for k, fn in entry.runners.items():
+            if not hasattr(fn, "__wrapped__"):
+                entry.runners[k] = timed("runner", fn, top=True)
+        runner_dicts.append(entry.runners)
+
+    get, step, build = cache.get, engine.step, engine._build_runner
+
+    def timed_get(*a, **kw):
+        misses, t0 = cache.misses, time.perf_counter()
+        with inside("cache_get"):
+            out = get(*a, **kw)
+        if cache.misses != misses:
+            ms = (time.perf_counter() - t0) * 1e3
+            spans["reload"].append(ms)
+            nested = getattr(local, "nested", None)
+            spans["reload_in_wave"].append(nested is not None)
+            if nested is not None:
+                local.nested += ms
+        return out
+
+    def timed_step():
+        local.nested = 0.0
+        t0 = time.perf_counter()
+        try:
+            with inside("step"):
+                return step()
+        finally:
+            spans["step_rest"].append(
+                (time.perf_counter() - t0) * 1e3 - local.nested)
+            local.nested = None
+
+    def timed_build(entry):
+        t0 = time.perf_counter()
+        entry.artifact.megaprogram()        # memoized: the build's own
+        spans["megaprogram"].append((time.perf_counter() - t0) * 1e3)
+        with inside("build_runner"):
+            runner = build(entry)
+        ms = (time.perf_counter() - t0) * 1e3
+        spans["build_runner"].append(ms)
+        if getattr(local, "nested", None) is not None:
+            local.nested += ms
+        wrapped = timed("runner", runner, top=True)
+        runner_dicts.append(entry.runners)
+        return wrapped
+
+    policy = door.fault_policy
+    drew = [0.0]
+    dispatch = door._dispatch
+
+    async def timed_dispatch(ticket):
+        drew[0], t0 = 0.0, time.perf_counter()
+        await dispatch(ticket)
+        if drew[0]:
+            spans["delayed_dispatch"].append(
+                (time.perf_counter() - t0) * 1e3)
+
+    gc_t0 = [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_t0[0] = time.perf_counter()
+        else:
+            spans["gc"].append((time.perf_counter() - gc_t0[0]) * 1e3)
+            spans["gc_generation"].append(info["generation"])
+            stack = local.__dict__.get("stack")
+            spans["gc_in"].append(stack[-1] if stack else "loop")
+
+    graph_from_payload = artifact_store._graph_from_payload
+
+    def rebuilt_graph(*a, **kw):
+        g = timed("store_graph", graph_from_payload)(*a, **kw)
+        timed("store_fingerprint", g.fingerprint)()  # memoized: the load's
+        return g
+
+    for key in list(cache._entries):
+        entry = cache.peek(key)         # no LRU touch: evictions unchanged
+        if entry is not None:
+            wrap_runners(entry)
+    put(cache, "get", timed_get)
+    put(engine, "step", timed_step)
+    put(engine, "_build_runner", timed_build)
+    put(door, "_step", timed("wave", door._step))
+    put(door, "_dispatch", timed_dispatch)
+    if cache.store is not None:
+        put(cache.store, "load", timed("store_load", cache.store.load))
+    put(artifact_store, "_graph_from_payload", rebuilt_graph)
+    put(artifact_store, "_digest", timed("store_digest",
+                                         artifact_store._digest))
+    if policy is not None:
+        take_delay = policy.take_delay
+
+        def noted_delay():
+            drew[0] = take_delay()
+            return drew[0]
+        put(policy, "take_delay", noted_delay)
+    put(logic_engine, "mega_arrays", timed("mega_arrays",
+                                           logic_engine.mega_arrays))
+    put(ops, "launch_records", timed("records", ops.launch_records))
+    gc.callbacks.append(on_gc)
+    try:
+        yield spans
+    finally:
+        gc.callbacks.remove(on_gc)
+        for owner, name, mine, old in reversed(undo):
+            if mine:
+                setattr(owner, name, old)
+            else:
+                delattr(owner, name)
+        for runners in runner_dicts:
+            for k, fn in runners.items():
+                runners[k] = getattr(fn, "__wrapped__", fn)
+
+
+def spans_summary(spans: dict, trace_ms: float) -> dict:
+    """One trace's host-time breakdown from :func:`door_spans`: sums (ms)
+    and counts, the reloads one by one, and the trace's time outside the
+    door's waves (dispatch, admission, routing, injected delays)."""
+    total = {k: sum(spans[k]) for k in SPANS}
+    gens, gc_in = {}, {}
+    for g, where, ms in zip(spans["gc_generation"], spans["gc_in"],
+                            spans["gc"]):
+        gens[str(g)] = gens.get(str(g), 0) + 1
+        gc_in[where] = gc_in.get(where, 0.0) + ms
+    return {"trace_ms": trace_ms, "waves": len(spans["wave"]),
+            "wave_ms": total["wave"],
+            "wave_ms_max": max(spans["wave"], default=0.0),
+            "runner_ms": total["runner"], "step_rest_ms": total["step_rest"],
+            "reloads": len(spans["reload"]),
+            "reload_ms": spans["reload"],
+            "reload_in_wave": spans["reload_in_wave"],
+            "store_load_ms": spans["store_load"],
+            "build_runner_ms": spans["build_runner"],
+            "megaprogram_ms": spans["megaprogram"],
+            "mega_arrays_ms": spans["mega_arrays"],
+            "records_ms": spans["records"],
+            "delays": len(spans["delayed_dispatch"]),
+            "delayed_dispatch_ms": total["delayed_dispatch"],
+            "store_graph_ms": spans["store_graph"],
+            "store_fingerprint_ms": spans["store_fingerprint"],
+            "store_digest_ms": total["store_digest"],
+            "gc_pauses": len(spans["gc"]), "gc_ms": total["gc"],
+            "gc_ms_max": max(spans["gc"], default=0.0),
+            "gc_by_generation": gens,
+            "gc_ms_in": gc_in,
+            "outside_waves_ms": trace_ms - total["wave"]}
+
+
 def frontdoor_phase(args, torch, dev, smi, tenants, fc2_synth_s) -> dict:
     """The front door on the card: two tenants (fc1, fc2) behind one
     ``FrontDoor`` at capacity 8192 with an artifact store.  Load points
@@ -1378,21 +1603,25 @@ def frontdoor_phase(args, torch, dev, smi, tenants, fc2_synth_s) -> dict:
     ``FD_OVERLOAD x R_sat`` with a seeded FaultPolicy (drops, delays);
     last the reference's own 2x point (``two_x``: unloaded p99 from
     sequential requests, 2 x capacity / wave / 24 requests a second,
-    eviction and delay faults) with its bound 3 x unloaded p99 + 75 ms
-    reported as held or not.  Between the first traces each tenant's
-    program is evicted and reloaded from the store.  Gated: bit-exact
-    results, every request accounted for, known shed codes, paced light
-    and overload traces, the light trace's sheds, the overload's sheds and
-    injected drops, one K2 launch per wave, reloads with no compile.
-    Timings (latencies, the 2x bound, idle share) are reported, not
-    gated."""
+    eviction and delay faults; FD2X_RUNS runs without a profiler, each with
+    its host-clock breakdown, and one under it) with its bound 3 x
+    unloaded p99 + 75 ms against the runs' median p99, reported as held or
+    not.  Between the first traces each tenant's program is evicted and
+    reloaded from the store, with the time its launch records take.
+    Gated: bit-exact results, every request accounted for, known shed
+    codes, paced light and overload traces, the light trace's sheds, the
+    overload's sheds and injected drops, one K2 launch per wave, reloads
+    with no compile and no launch records built.  Timings (latencies, the
+    2x bound, the breakdowns, idle share) are reported, not gated."""
     import asyncio
+    import gc
 
     import numpy as np
 
     from repro_torch.core.artifact_store import ArtifactStore
     from repro_torch.core.spec import CompileSpec
     from repro_torch.kernels.logic_dsp import kernel as K
+    from repro_torch.kernels.logic_dsp import ops
     from repro_torch.serve import (SHED_CODES, FaultPolicy, FrontDoor,
                                    TrafficPattern, build_trace)
 
@@ -1445,22 +1674,30 @@ def frontdoor_phase(args, torch, dev, smi, tenants, fc2_synth_s) -> dict:
 
     async def reload(door, served):
         """Evict each tenant's program and submit again: the entry must
-        come back from the store, with no compile."""
+        come back from the store with no compile and no launch records
+        built; the request's time beside its spans (:func:`door_spans`)."""
         cache, out = door.engine.cache, {}
         for name in names:
-            before = cache.stats()
+            before, built = cache.stats(), ops.LAUNCH_RECORDS.stats()
             key = cache.get(tenants[name], door.engine.spec).key
             check(cache.evict(key) == key, f"{name}: evicted")
             bits = draw(name, FD_SIZE_MEAN)
-            t0 = time.perf_counter()
-            y = await door.submit(name, bits, deadline_s=60.0)
-            dt = time.perf_counter() - t0
+            with door_spans(door) as sp:
+                t0 = time.perf_counter()
+                y = await door.submit(name, bits, deadline_s=60.0)
+                dt = time.perf_counter() - t0
             served.append((name, bits, y))
             after = cache.stats()
             out[name] = {"reload_ms": dt * 1e3,
+                         **{f"{k}_ms": sum(sp[k]) for k in (
+                             "records", "store_load", "store_graph",
+                             "store_fingerprint", "megaprogram",
+                             "mega_arrays", "build_runner", "runner")},
                          "compiles": after["compiles"] - before["compiles"],
                          "store_hits": after["store_hits"] -
-                         before["store_hits"]}
+                         before["store_hits"],
+                         "records_built": ops.LAUNCH_RECORDS.stats()[
+                             "builds"] - built["builds"]}
         return out
 
     async def saturate(door, served):
@@ -1489,12 +1726,14 @@ def frontdoor_phase(args, torch, dev, smi, tenants, fc2_synth_s) -> dict:
                 "r_sat_rps": done[0] / elapsed, "waves": waves,
                 "requests_per_wave": done[0] / max(1, waves)}
 
-    async def two_x_point(door, served):
-        """The reference's graceful-degradation point: the unloaded p99 of
-        sequential mean-size requests (the door's own latency window),
-        then 2 x the sustainable rate (capacity / wave / mean size) split
-        over a Poisson and a Pareto tenant under eviction and delay
-        faults, and the bound 3 x unloaded p99 + 75 ms (reported)."""
+    async def two_x_run(door, served, profile: bool) -> tuple:
+        """One run of the reference's graceful-degradation point: the
+        unloaded p99 of sequential mean-size requests (the door's own
+        latency window), then 2 x the sustainable rate (capacity / wave /
+        mean size) split over a Poisson and a Pareto tenant under a fresh
+        ``FaultPolicy(**FD2X_FAULTS)`` (eviction and delay faults), with
+        the trace's host-clock breakdown (:func:`door_spans`); under
+        torch.profiler when ``profile``."""
         door.reset_metrics()
         _, seq = await sequential(door, FD2X_SEQUENTIAL)
         served += seq
@@ -1514,18 +1753,48 @@ def frontdoor_phase(args, torch, dev, smi, tenants, fc2_synth_s) -> dict:
         policy = FaultPolicy(**FD2X_FAULTS)
         door.fault_policy = policy
         w0 = door.engine.invocations
-        res, prof = await profiled(drive_trace(door, trace, trace_bits))
+        gc.collect()        # the earlier phases' garbage, not the trace's
+        with door_spans(door) as sp:
+            if profile:
+                res, prof = await profiled(
+                    drive_trace(door, trace, trace_bits))
+            else:
+                res, prof = await drive_trace(door, trace, trace_bits), {}
         door.fault_policy = None
         summ = trace_summary(res, door.engine.invocations - w0,
                              FD2X_DEADLINE_S)
         bound = 3.0 * unloaded_p99 + 75.0
         return {**summ, "unloaded_p99_ms": unloaded_p99,
                 "wave_ms": wave * 1e3, "sustainable_rps": sustainable,
-                "rate_rps": 2.0 * sustainable, "faults": dict(FD2X_FAULTS),
+                "rate_rps": 2.0 * sustainable,
                 "injected": dict(policy.injected), "bound_ms": bound,
                 "bound_held": (None if summ["p99_ms"] is None
                                else summ["p99_ms"] <= bound),
-                "gated": False, **prof}, res
+                "breakdown": spans_summary(sp, res["elapsed_s"] * 1e3),
+                **prof}, res
+
+    async def two_x_point(door, served):
+        """The reference's 2x point as its test reads it
+        (``tests/test_frontdoor.py:379-447``): FD2X_RUNS runs without a
+        profiler, the bound 3 x the runs' median unloaded p99 + 75 ms
+        against their median p99; then one more run under torch.profiler
+        for the device's idle share, reported but not bounded."""
+        runs, raw = [], {"served": []}
+        for _ in range(FD2X_RUNS):
+            run_, res = await two_x_run(door, served, profile=False)
+            runs.append(run_)
+            raw["served"] += res["served"]
+        profiled_run, res = await two_x_run(door, served, profile=True)
+        raw["served"] += res["served"]
+        p99s = [r["p99_ms"] for r in runs]
+        unloaded = float(np.median([r["unloaded_p99_ms"] for r in runs]))
+        p99 = None if None in p99s else float(np.median(p99s))
+        bound = 3.0 * unloaded + 75.0
+        return {"runs": runs, "profiled": profiled_run,
+                "faults": dict(FD2X_FAULTS), "p99_ms": p99,
+                "unloaded_p99_ms": unloaded, "bound_ms": bound,
+                "bound_held": None if p99 is None else p99 <= bound,
+                "gated": False}, raw
 
     async def go(store_dir):
         served = []
@@ -1622,11 +1891,14 @@ def frontdoor_phase(args, torch, dev, smi, tenants, fc2_synth_s) -> dict:
            "fc2_synth_s": fc2_synth_s, "capacity": CAPACITY,
            "max_inflight": FD_MAX_INFLIGHT, "size_mean": FD_SIZE_MEAN,
            **r, "results_checked": len(served), "exact": exact,
-           "oracle_s": oracle_s, "wall_s": wall_s, "launches": launches}
+           "oracle_s": oracle_s, "wall_s": wall_s, "launches": launches,
+           "launch_records": ops.LAUNCH_RECORDS.stats()}
     emit(out)
     check(all(exact.values()), f"every served result is bit-exact: {exact}")
-    for trace in ("light", "overload", "two_x"):
-        t = out[trace]
+    two_x = out["two_x"]
+    for trace, t in (("light", out["light"]), ("overload", out["overload"]),
+                     *((f"two_x run {i}", r) for i, r in enumerate(
+                         [*two_x["runs"], two_x["profiled"]]))):
         check(t["completed"] + t["shed"] == t["offered"],
               f"{trace}: completed + shed == offered")
         check(all(c in SHED_CODES for c in t["shed_by_code"]),
@@ -1652,6 +1924,8 @@ def frontdoor_phase(args, torch, dev, smi, tenants, fc2_synth_s) -> dict:
         for name, rl in out[when].items():
             check(rl["compiles"] == 0 and rl["store_hits"] == 1,
                   f"{when}: {name} came back from the store uncompiled")
+            check(rl["records_built"] == 0,
+                  f"{when}: {name} uploaded its kept launch records")
     return out
 
 

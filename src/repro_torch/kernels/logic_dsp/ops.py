@@ -15,13 +15,19 @@ state is the stream tensors, memoized on the (frozen) program object per
 device, beside what the CUDA kernel reads instead (:func:`launch_records`:
 one index record per lane and step, and the launch plan: scratch variant,
 columns per block, record ring, and whether a step needs one barrier or
-two).  The kernel takes any ``n_unit``, so the lanes are not padded.
+two).  The host records are also kept process-wide by the streams' bytes
+(:data:`LAUNCH_RECORDS`), so a program loaded anew, such as an
+artifact-store reload after an eviction, uploads them without building
+them again.  The kernel takes any ``n_unit``, so the lanes are not padded.
 :func:`phased_infer_bits` is the calibration's measurement path: one
 inference split into pack / setup / kernel / unpack, fenced on the card.
 """
 from __future__ import annotations
 
+import hashlib
+import threading
 import time
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -217,19 +223,75 @@ def bank_order(src_a, src_b, dst, cols: int) -> np.ndarray:
     return order
 
 
-def launch_records(src_a, src_b, dst, opcode, step_branch, *, n_addr: int,
-                   trash=None, device=None, scratch: str | None = None,
-                   two_barriers: bool = False) -> dict:
-    """What the CUDA kernel reads for a program's host streams: its launch
-    plan (``kernel.plan_launch`` over ``n_addr``, ``n_unit`` and
-    :func:`same_step_reads_free`) and ``rec``, one int32 record per lane
-    and step on ``device``: ``(src_a | src_b << 16, dst | tt << 16)`` for
-    the shared variant (rows below 2**16), ``(src_a, src_b, dst, tt)`` for
-    the device one, ``tt`` the lane's op as its truth table
-    (``ref.TRUTH_TABLES``); the shared variant's lanes in
-    :func:`bank_order`.  The streams stay as they are.  ``scratch``
-    pins the variant and ``two_barriers`` skips the proof (for the card
-    tests)."""
+class LaunchRecordCache:
+    """A bounded LRU of host launch records, thread-safe: each entry is one
+    program's ``rec`` before its upload (a CPU tensor) and its ``plan``,
+    keyed by :func:`records_key`.  It holds at most ``max_entries`` record
+    sets and ``max_bytes`` of records, dropping the least recently used
+    first; a set larger than ``max_bytes`` is built and not kept.  What
+    :meth:`get` returns is the cached tensor itself: callers copy it."""
+
+    def __init__(self, max_entries: int, max_bytes: int):
+        self.max_entries, self.max_bytes = max_entries, max_bytes
+        self._entries: OrderedDict[bytes, tuple] = OrderedDict()
+        self._bytes = 0
+        self._lock = threading.Lock()
+        self.hits = self.builds = 0
+
+    def get(self, key: bytes, build) -> tuple:
+        """``(rec, plan)`` for ``key``, from the cache or from ``build()``
+        (run outside the lock, then kept)."""
+        with self._lock:
+            found = self._entries.get(key)
+            if found is not None:
+                self._entries.move_to_end(key)
+                self.hits += 1
+                return found
+        rec, plan = build()
+        size = rec.numel() * rec.element_size()
+        with self._lock:
+            self.builds += 1
+            if key not in self._entries and size <= self.max_bytes:
+                self._entries[key] = (rec, plan)
+                self._bytes += size
+                while (len(self._entries) > self.max_entries
+                       or self._bytes > self.max_bytes):
+                    _, (old, _) = self._entries.popitem(last=False)
+                    self._bytes -= old.numel() * old.element_size()
+        return rec, plan
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {"entries": len(self._entries), "bytes": self._bytes,
+                    "max_entries": self.max_entries,
+                    "max_bytes": self.max_bytes, "hits": self.hits,
+                    "builds": self.builds}
+
+
+#: The process's launch records.  A fc1-size program's shared-variant set
+#: (145 steps x 256 lanes x 8 bytes) is 297 KB: the bound keeps 128 such
+#: sets, at most 64 MiB.
+LAUNCH_RECORDS = LaunchRecordCache(max_entries=128, max_bytes=64 << 20)
+
+
+def records_key(streams, *, n_addr: int, trash, scratch: str | None,
+                two_barriers: bool) -> bytes:
+    """SHA-256 of everything the launch records depend on: each stream's
+    shape and its values as int32 (``src_a``, ``src_b``, ``dst``, ``opcode``,
+    ``step_branch``), the trash rows (a scalar, one per step, or None),
+    ``n_addr``, the pinned scratch variant and ``two_barriers``."""
+    h = hashlib.sha256(repr((n_addr, scratch, two_barriers,
+                             trash is None)).encode())
+    for x in (*streams, *(() if trash is None else (trash,))):
+        a = np.ascontiguousarray(x, dtype=np.int32)   # rows, opcodes fit
+        h.update(f"{np.shape(x)};".encode())
+        h.update(a.data)
+    return h.digest()
+
+
+def _build_records(src_a, src_b, dst, opcode, step_branch, n_addr: int,
+                   trash, scratch: str | None, two_barriers: bool) -> tuple:
+    """The host records and plan of :func:`launch_records`, built."""
     src_a, src_b, dst = (np.asarray(x, dtype=np.int64)
                          for x in (src_a, src_b, dst))
     one_barrier = not two_barriers and same_step_reads_free(
@@ -249,8 +311,30 @@ def launch_records(src_a, src_b, dst, opcode, step_branch, *, n_addr: int,
         rec = rec.astype(np.uint32).view(np.int32)
     else:
         rec = np.stack([src_a, src_b, dst, tt], axis=-1).astype(np.int32)
-    return {"rec": torch.from_numpy(np.ascontiguousarray(rec)).to(device),
-            "plan": plan}
+    return torch.from_numpy(np.ascontiguousarray(rec)), plan
+
+
+def launch_records(src_a, src_b, dst, opcode, step_branch, *, n_addr: int,
+                   trash=None, device=None, scratch: str | None = None,
+                   two_barriers: bool = False) -> dict:
+    """What the CUDA kernel reads for a program's host streams: its launch
+    plan (``kernel.plan_launch`` over ``n_addr``, ``n_unit`` and
+    :func:`same_step_reads_free`) and ``rec``, one int32 record per lane
+    and step on ``device``: ``(src_a | src_b << 16, dst | tt << 16)`` for
+    the shared variant (rows below 2**16), ``(src_a, src_b, dst, tt)`` for
+    the device one, ``tt`` the lane's op as its truth table
+    (``ref.TRUTH_TABLES``); the shared variant's lanes in
+    :func:`bank_order`.  The streams stay as they are.  ``scratch``
+    pins the variant and ``two_barriers`` skips the proof (for the card
+    tests).  The host records are built once per distinct streams in the
+    process (:data:`LAUNCH_RECORDS`); ``rec`` is always a fresh copy."""
+    streams = (src_a, src_b, dst, opcode, step_branch)
+    key = records_key(streams, n_addr=n_addr, trash=trash, scratch=scratch,
+                      two_barriers=two_barriers)
+    rec, plan = LAUNCH_RECORDS.get(key, lambda: _build_records(
+        *streams, n_addr, trash, scratch, two_barriers))
+    out = rec.to(device)
+    return {"rec": out.clone() if out is rec else out, "plan": plan}
 
 
 def program_arrays(prog: LogicProgram, device=None) -> dict:

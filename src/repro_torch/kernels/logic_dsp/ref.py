@@ -24,44 +24,59 @@ import torch
 from repro_torch.core.gate_ir import MIXED_DISPATCH
 
 
-def apply_opcode(op: torch.Tensor, a: torch.Tensor,
-                 b: torch.Tensor) -> torch.Tensor:
-    """Generic vectorized opcode dispatch; ``op`` broadcasts against a/b
-    (int32). Used for mixed-opcode steps only."""
-    r = torch.zeros_like(a)                                 # NOP = 0
-    r = torch.where(op == 1, a & b, r)                      # AND
-    r = torch.where(op == 2, a | b, r)                      # OR
-    r = torch.where(op == 3, a ^ b, r)                      # XOR
-    r = torch.where(op == 4, (a & b) ^ -1, r)               # NAND
-    r = torch.where(op == 5, (a | b) ^ -1, r)               # NOR
-    r = torch.where(op == 6, (a ^ b) ^ -1, r)               # XNOR
-    r = torch.where(op == 7, a ^ -1, r)                     # NOT
-    r = torch.where(op == 8, a, r)                          # COPY
-    return r
-
-
 # Branch k (k < MIXED_DISPATCH) is the slab op for opcode k, applied to ALL
-# unit rows of the step; branch MIXED_DISPATCH is the per-lane select.
+# unit rows of the step; branch MIXED_DISPATCH is the per-lane select, whose
+# third argument is the step's :func:`opcode_masks` (the slab ops ignore it).
 STEP_BRANCHES = (
-    lambda a, b, ops: torch.zeros_like(a),                  # NOP
-    lambda a, b, ops: a & b,                                # AND
-    lambda a, b, ops: a | b,                                # OR
-    lambda a, b, ops: a ^ b,                                # XOR
-    lambda a, b, ops: (a & b) ^ -1,                         # NAND
-    lambda a, b, ops: (a | b) ^ -1,                         # NOR
-    lambda a, b, ops: (a ^ b) ^ -1,                         # XNOR
-    lambda a, b, ops: a ^ -1,                               # NOT
-    lambda a, b, ops: a,                                    # COPY
-    lambda a, b, ops: apply_opcode(ops[:, None], a, b),     # mixed
+    lambda a, b, c: torch.zeros_like(a),                    # NOP
+    lambda a, b, c: a & b,                                  # AND
+    lambda a, b, c: a | b,                                  # OR
+    lambda a, b, c: a ^ b,                                  # XOR
+    lambda a, b, c: (a & b) ^ -1,                           # NAND
+    lambda a, b, c: (a | b) ^ -1,                           # NOR
+    lambda a, b, c: (a ^ b) ^ -1,                           # XNOR
+    lambda a, b, c: a ^ -1,                                 # NOT
+    lambda a, b, c: a,                                      # COPY
+    lambda a, b, c: apply_masks(c, a, b),                   # mixed
 )
 assert len(STEP_BRANCHES) == MIXED_DISPATCH + 1
 
 
-def apply_step(branch: int, opcodes: torch.Tensor, a: torch.Tensor,
-               b: torch.Tensor) -> torch.Tensor:
-    """One step on (n_unit, W) operand slabs: a single bitwise slab op for
-    homogeneous steps, the per-lane select otherwise."""
-    return STEP_BRANCHES[int(branch)](a, b, opcodes)
+def _normal_form(slab_op) -> list[int]:
+    """``slab_op``'s algebraic normal form, op(a, b) = c0 ^ a c1 ^ b c2 ^
+    a b c3, read from the op itself on a = 0b1100, b = 0b1010 (bit 2x + y
+    of the result is op(x, y)); each ``c`` 0 or all ones."""
+    r = int(slab_op(torch.tensor(0b1100), torch.tensor(0b1010), None))
+    f00, f01, f10, f11 = ((r >> i) & 1 for i in range(4))
+    return [-f00, -(f10 ^ f00), -(f01 ^ f00), -(f11 ^ f10 ^ f01 ^ f00)]
+
+
+#: (16, 4) int32: opcode k's normal form (``_normal_form`` of its slab op);
+#: opcodes past COPY act as NOP.
+NORMAL_FORMS = torch.tensor(
+    [_normal_form(op) for op in STEP_BRANCHES[:MIXED_DISPATCH]]
+    + [[0] * 4] * (16 - MIXED_DISPATCH), dtype=torch.int32)
+
+
+def opcode_masks(op: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Each opcode's four normal-form masks ``(c0, c1, c2, c3)``, each of
+    ``op``'s shape, for :func:`apply_masks`."""
+    return NORMAL_FORMS.to(op.device)[op.long().clamp(0, 15)].unbind(-1)
+
+
+def apply_masks(c: tuple[torch.Tensor, ...], a: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """The per-lane select in six word ops: ``c`` are
+    :func:`opcode_masks` broadcasting against a/b (int32)."""
+    c0, c1, c2, c3 = c
+    return c0 ^ (a & (c1 ^ (b & c3))) ^ (b & c2)
+
+
+def apply_opcode(op: torch.Tensor, a: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """Generic vectorized opcode dispatch; ``op`` broadcasts against a/b
+    (int32)."""
+    return apply_masks(opcode_masks(op), a, b)
 
 
 #: Each opcode's truth table, the op the CUDA kernel applies: bit 2x + y is
@@ -158,16 +173,15 @@ def logic_forward_ref(src_a: torch.Tensor, src_b: torch.Tensor,
                       device=input_words.device)
     buf[1] = -1
     buf[2:2 + n_inputs] = input_words
-    src_a, src_b, dst = src_a.long(), src_b.long(), dst.long()
-    branches = (None if step_branch is None else step_branch.tolist())
-    for s in range(src_a.shape[0]):
-        a = buf[src_a[s]]                                   # (n_unit, W)
-        b = buf[src_b[s]]
-        if branches is None:
-            r = apply_opcode(opcode[s][:, None], a, b)
-        else:
-            r = apply_step(branches[s], opcode[s], a, b)
-        buf[dst[s]] = r
+    n_steps = src_a.shape[0]
+    branches = ([MIXED_DISPATCH] * n_steps if step_branch is None
+                else step_branch.tolist())
+    masks = ([None] * n_steps if max(branches, default=0) < MIXED_DISPATCH
+             else zip(*(m.unbind(0) for m in opcode_masks(opcode[..., None]))))
+    for ia, ib, io, branch, c in zip(src_a.long().unbind(0),
+                                     src_b.long().unbind(0),
+                                     dst.long().unbind(0), branches, masks):
+        buf[io] = STEP_BRANCHES[branch](buf[ia], buf[ib], c)
     return buf[output_addrs.long()]
 
 

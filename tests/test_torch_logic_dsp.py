@@ -22,9 +22,9 @@ from repro_torch.core.gate_ir import CONST1, LogicGraph, random_graph
 from repro_torch.core.scheduler import compile_graph, execute_program_np
 from repro_torch.core.spec import CompileSpec
 from repro_torch.kernels.logic_dsp import ops
-from repro_torch.kernels.logic_dsp.ref import (TRUTH_TABLES, apply_opcode,
-                                               apply_step, apply_truth_table,
-                                               decode_records,
+from repro_torch.kernels.logic_dsp.ref import (STEP_BRANCHES, TRUTH_TABLES,
+                                               apply_opcode, apply_truth_table,
+                                               decode_records, opcode_masks,
                                                logic_forward_records,
                                                logic_forward_ref)
 
@@ -84,11 +84,11 @@ def test_unpack_sign_bit_words():
 
 def test_apply_opcode_matches_reference():
     rng = np.random.default_rng(0)
-    a = rng.integers(-2 ** 31, 2 ** 31, (10, 5), dtype=np.int64) \
+    a = rng.integers(-2 ** 31, 2 ** 31, (16, 5), dtype=np.int64) \
         .astype(np.int32)
-    b = rng.integers(-2 ** 31, 2 ** 31, (10, 5), dtype=np.int64) \
+    b = rng.integers(-2 ** 31, 2 ** 31, (16, 5), dtype=np.int64) \
         .astype(np.int32)
-    op = np.arange(10, dtype=np.int32)[:, None]      # 0..8 plus unknown 9
+    op = np.arange(16, dtype=np.int32)[:, None]      # 0..8, unknown 9..15
     got = apply_opcode(torch.from_numpy(op), torch.from_numpy(a),
                        torch.from_numpy(b)).numpy()
     want = np.asarray(apply_opcode_jnp(jnp.asarray(op), jnp.asarray(a),
@@ -97,10 +97,10 @@ def test_apply_opcode_matches_reference():
     ta, tb = torch.from_numpy(a), torch.from_numpy(b)
     for k in range(9):                   # each bank == the select at k
         want_k = np.asarray(apply_opcode_jnp(
-            jnp.full((10, 1), k, jnp.int32), jnp.asarray(a), jnp.asarray(b)))
-        got_k = apply_step(k, torch.full((10,), k, dtype=torch.int32), ta, tb)
+            jnp.full((16, 1), k, jnp.int32), jnp.asarray(a), jnp.asarray(b)))
+        got_k = STEP_BRANCHES[k](ta, tb, None)
         np.testing.assert_array_equal(got_k.numpy(), want_k)
-    mixed = apply_step(9, torch.from_numpy(op[:, 0]), ta, tb)
+    mixed = STEP_BRANCHES[9](ta, tb, opcode_masks(torch.from_numpy(op)))
     np.testing.assert_array_equal(mixed.numpy(), want)
 
 
