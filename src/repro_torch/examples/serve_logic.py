@@ -12,7 +12,10 @@ way a production front-end would (ROADMAP north star; paper §5.2.4):
   2. repeat traffic for a structurally identical graph — program-cache hit,
      no recompile;
   3. a graph over the partition budget, served as a pipelined sequence of
-     sub-programs (core/partition.py) with word-level re-assembly.
+     sub-programs (core/partition.py) with word-level re-assembly;
+  4. one full wave under ``obs.recording()``: its phases from the engine's
+     own spans (a ``torch.profiler`` trace shows the same ranges above
+     their kernels).
 
 Every response is checked bit-exact against direct DAG evaluation.
 """
@@ -21,6 +24,7 @@ import time
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.gate_ir import random_graph
 from repro_torch.core.spec import CompileSpec
 from repro_torch.serve import LogicEngine
@@ -71,6 +75,19 @@ def main(device=None) -> None:
     entry = part_engine.cache.get(big, part_engine.spec)
     print(f"over-budget graph ({big.n_gates} gates) served as "
           f"{len(entry.programs)} pipelined sub-programs  [bit-exact]")
+
+    # -- 4. one wave's split, from the engine's own spans -------------------
+    x = rng.integers(0, 2, (engine.capacity, 32)).astype(bool)
+    obs.clear()
+    with obs.recording():
+        out = engine.serve(g, x)
+    assert (out == g.evaluate(x)).all()
+    print("one full wave, by the engine's spans:")
+    depth = {None: -1}
+    for sp in sorted(obs.spans(), key=lambda sp: sp.start):
+        depth[sp.index] = depth[sp.parent] + 1
+        print(f"  {'  ' * depth[sp.index]}{sp.label:<14} "
+              f"{(sp.end - sp.start) * 1e3:7.3f} ms")
 
     print("stats:", engine.stats())
 

@@ -44,6 +44,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.artifact_store import ArtifactStore, store_key
 from repro_torch.core.calibrate import CalibrationError
 from repro_torch.core.compiler import CompiledArtifact, LogicCompiler
@@ -876,6 +877,11 @@ class LogicEngine:
         pinned host memory without waiting; then every shard's stream is
         synchronized and the blocks are concatenated in order.  A shard
         that fails raises.
+
+        The runner is the span ``runner`` (``repro_torch.obs``); on one
+        device its phases are ``runner.h2d``, ``runner.pack``,
+        ``runner.kernel`` (the launch's enqueue), ``runner.unpack`` and
+        ``runner.d2h`` (the wait for the stream, then the copy back).
         """
         mega = entry.artifact.megaprogram()
         for dev in dict.fromkeys(self.devices):
@@ -884,9 +890,17 @@ class LogicEngine:
 
         if not self.shard:
             def run(bits: np.ndarray) -> np.ndarray:
-                x = torch.from_numpy(bits).to(device)
-                ow = mega_forward_words(mega, pack_bits(x), use_ref=use_ref)
-                return unpack_bits(ow, bits.shape[0]).cpu().numpy()
+                with obs.span("runner"):
+                    with obs.span("runner.h2d"):
+                        x = torch.from_numpy(bits).to(device)
+                    with obs.span("runner.pack"):
+                        words = pack_bits(x)
+                    with obs.span("runner.kernel"):
+                        ow = mega_forward_words(mega, words, use_ref=use_ref)
+                    with obs.span("runner.unpack"):
+                        y = unpack_bits(ow, bits.shape[0])
+                    with obs.span("runner.d2h"):
+                        return y.cpu().numpy()
 
             return run
 
@@ -895,7 +909,7 @@ class LogicEngine:
         streams = [torch.cuda.Stream(device=d) if d.type == "cuda" else None
                    for d in devices]
 
-        def run_sharded(bits: np.ndarray) -> np.ndarray:
+        def run_split(bits: np.ndarray) -> np.ndarray:
             outs = []
             for i, (dev, stream) in enumerate(zip(devices, streams)):
                 if stream is not None:
@@ -916,6 +930,10 @@ class LogicEngine:
                     stream.synchronize()
             return torch.cat(outs).numpy()
 
+        def run_sharded(bits: np.ndarray) -> np.ndarray:
+            with obs.span("runner"):
+                return run_split(bits)
+
         return run_sharded
 
     # -- request lifecycle ---------------------------------------------------
@@ -928,27 +946,33 @@ class LogicEngine:
 
     def submit(self, graph: LogicGraph, bits: np.ndarray) -> int:
         """Queue a request; returns its uid (serve with :meth:`step`)."""
-        bits = np.asarray(bits, dtype=bool)
-        if bits.ndim != 2 or bits.shape[1] != graph.n_inputs:
-            raise ValueError(
-                f"inputs must be (n, {graph.n_inputs}), got {bits.shape}")
-        return self._admit(self._entry(graph), graph, bits, chain=None)
+        with obs.span("engine.submit") as sp:
+            bits = np.asarray(bits, dtype=bool)
+            if bits.ndim != 2 or bits.shape[1] != graph.n_inputs:
+                raise ValueError(
+                    f"inputs must be (n, {graph.n_inputs}), got {bits.shape}")
+            uid = self._admit(self._entry(graph), graph, bits, chain=None)
+            sp.note(uid=uid, samples=bits.shape[0])
+            return uid
 
     def submit_chain(self, graphs, bits: np.ndarray) -> int:
         """Queue a request against a *stage chain* (e.g. a classifier's
         per-layer graphs): the stack is compiled per stage and served as
         one chain-mode mega-kernel launch per wave.  Stage widths must
         chain (``graphs[k].n_outputs == graphs[k+1].n_inputs``)."""
-        graphs = tuple(graphs)
-        if not graphs:
-            raise ValueError("submit_chain needs at least one stage graph")
-        bits = np.asarray(bits, dtype=bool)
-        if bits.ndim != 2 or bits.shape[1] != graphs[0].n_inputs:
-            raise ValueError(
-                f"inputs must be (n, {graphs[0].n_inputs}), got "
-                f"{bits.shape}")
-        return self._admit(self._chain_entry(graphs), graphs[0], bits,
-                           chain=graphs)
+        with obs.span("engine.submit") as sp:
+            graphs = tuple(graphs)
+            if not graphs:
+                raise ValueError("submit_chain needs at least one stage graph")
+            bits = np.asarray(bits, dtype=bool)
+            if bits.ndim != 2 or bits.shape[1] != graphs[0].n_inputs:
+                raise ValueError(
+                    f"inputs must be (n, {graphs[0].n_inputs}), got "
+                    f"{bits.shape}")
+            uid = self._admit(self._chain_entry(graphs), graphs[0], bits,
+                              chain=graphs)
+            sp.note(uid=uid, samples=bits.shape[0])
+            return uid
 
     def _admit(self, entry: CompiledEntry, graph: LogicGraph,
                bits: np.ndarray, chain: tuple | None) -> int:
@@ -1002,6 +1026,11 @@ class LogicEngine:
         keys), admitting chunks into slot rows until the table is full,
         then runs ONE kernel launch for all of them. Returns the uids
         completed this wave.
+
+        The wave is the span ``engine.step`` (``repro_torch.obs``; its
+        attributes the wave's number, its samples and the uids it
+        completed) over ``engine.admit``, ``engine.slab``, the runner's
+        ``runner`` and ``engine.retire``.
         """
         key = next((k for k, q in self._queues.items() if q), None)
         if key is None:
@@ -1016,30 +1045,36 @@ class LogicEngine:
                 else self._entry(req.graph)
         elif self._exec_key not in entry.runners:
             entry.runners[self._exec_key] = self._build_runner(entry)
-        admitted: list[tuple[_Chunk, np.ndarray]] = []
-        while queue:
-            rows = self.slots.acquire(queue[0].n)
-            if rows is None:
-                break
-            admitted.append((queue.popleft(), rows))
-        if not admitted:
-            return []
+        with obs.span("engine.step") as wave:
+            admitted: list[tuple[_Chunk, np.ndarray]] = []
+            with obs.span("engine.admit"):
+                while queue:
+                    rows = self.slots.acquire(queue[0].n)
+                    if rows is None:
+                        break
+                    admitted.append((queue.popleft(), rows))
+            if not admitted:
+                return []
 
-        bits = np.zeros((self.capacity, entry.n_inputs), dtype=bool)
-        for chunk, rows in admitted:
-            bits[rows] = chunk.req.inputs[chunk.lo:chunk.hi]
-        out = entry.runners[self._exec_key](bits)
+            with obs.span("engine.slab"):
+                bits = np.zeros((self.capacity, entry.n_inputs), dtype=bool)
+                for chunk, rows in admitted:
+                    bits[rows] = chunk.req.inputs[chunk.lo:chunk.hi]
+            out = entry.runners[self._exec_key](bits)
 
-        finished: list[int] = []
-        n_active = sum(c.n for c, _ in admitted)
-        for chunk, rows in admitted:
-            chunk.req.result[chunk.lo:chunk.hi] = out[rows]
-            chunk.req.pending_chunks -= 1
-            self.slots.release(rows)
-            if chunk.req.pending_chunks == 0:
-                chunk.req.done = True
-                finished.append(chunk.req.uid)
-                self._retire(chunk.req.uid)
+            with obs.span("engine.retire"):
+                finished: list[int] = []
+                n_active = sum(c.n for c, _ in admitted)
+                for chunk, rows in admitted:
+                    chunk.req.result[chunk.lo:chunk.hi] = out[rows]
+                    chunk.req.pending_chunks -= 1
+                    self.slots.release(rows)
+                    if chunk.req.pending_chunks == 0:
+                        chunk.req.done = True
+                        finished.append(chunk.req.uid)
+                        self._retire(chunk.req.uid)
+            wave.note(wave=self.invocations, samples=n_active,
+                      uids=tuple(finished))
         self.invocations += 1
         self.samples_served += n_active
         self._occupancy_sum += n_active / self.capacity

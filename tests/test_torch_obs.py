@@ -1,0 +1,170 @@
+"""The port's own spans (``repro_torch.obs``): nothing recorded while no one
+listens, the wave's span tree under ``recording()`` and under a profiler,
+the log's bound, and one parent stack a thread."""
+import threading
+from collections import Counter
+
+import numpy as np
+import pytest
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch import obs
+from repro_torch.core.gate_ir import random_graph
+from repro_torch.core.spec import CompileSpec
+from repro_torch.serve import LogicEngine
+
+STEP = ["engine.admit", "engine.slab", "runner", "engine.retire"]
+RUNNER = ["runner.h2d", "runner.pack", "runner.kernel", "runner.unpack",
+          "runner.d2h"]
+CAPACITY = 32
+
+
+@pytest.fixture(autouse=True)
+def empty_log():
+    obs.clear()
+    yield
+    obs.clear()
+
+
+def _graph(seed, n_in=10, n_out=6):
+    return random_graph(np.random.default_rng(seed), n_in, 150, n_out,
+                        locality=24)
+
+
+def _bits(seed, n, n_in):
+    return np.random.default_rng(seed).integers(0, 2, (n, n_in)).astype(bool)
+
+
+def _serve(eng, sizes, chain=False):
+    """Submit requests of ``sizes`` and drain: {uid: n}."""
+    g = _graph(1)
+    graphs = (g, _graph(2, n_in=g.n_outputs, n_out=4))
+    uids = {}
+    for i, n in enumerate(sizes):
+        x = _bits(10 + i, n, g.n_inputs)
+        uid = eng.submit_chain(graphs, x) if chain else eng.submit(g, x)
+        uids[uid] = n
+    eng.drain()
+    for uid in uids:
+        eng.result(uid)
+    return uids
+
+
+def _children(spans):
+    kids = {}
+    for s in spans:
+        kids.setdefault(s.parent, []).append(s)
+    return {k: sorted(v, key=lambda s: s.start) for k, v in kids.items()}
+
+
+def test_off_records_nothing_and_returns_one_object():
+    eng = LogicEngine(CompileSpec(n_unit=16), capacity=CAPACITY, device="cpu")
+    _serve(eng, [CAPACITY] * 100)
+    assert eng.invocations == 100
+    assert obs.spans() == [] and obs.dropped() == 0
+    off = obs.span("engine.step")
+    assert obs.span("runner", uid=3) is off
+    with off as sp:
+        sp.note(wave=1)
+    assert obs.spans() == []
+
+
+@pytest.mark.parametrize("chain", [False, True])
+def test_recording_gives_the_waves_span_tree(chain):
+    eng = LogicEngine(CompileSpec(n_unit=16), capacity=CAPACITY, device="cpu")
+    _serve(eng, [5], chain=chain)                 # compile outside the log
+    with obs.recording():
+        uids = _serve(eng, [70, 12, 32, 9], chain=chain)
+    spans = obs.spans()
+    by_index = {s.index: s for s in spans}
+    kids = _children(spans)
+    steps = [s for s in spans if s.label == "engine.step"]
+    submits = [s for s in spans if s.label == "engine.submit"]
+    assert len(steps) == eng.invocations - 1 and len(submits) == len(uids)
+    assert all(s.parent is None for s in steps + submits)
+    for step in steps:
+        assert [c.label for c in kids[step.index]] == STEP
+        runner = kids[step.index][2]
+        assert [c.label for c in kids[runner.index]] == RUNNER
+    for s in spans:
+        if s.parent is not None:
+            up = by_index[s.parent]
+            assert up.start <= s.start <= s.end <= up.end
+        assert s.thread == threading.get_ident()
+    assert [s.attrs["wave"] for s in steps] == \
+        list(range(1, eng.invocations))
+    assert sum(s.attrs["samples"] for s in steps) == sum(uids.values())
+    # a request's uid names the wave that completed it, and only that one
+    for sub in submits:
+        uid = sub.attrs["uid"]
+        assert sub.attrs["samples"] == uids[uid]
+        done = [s for s in steps if uid in s.attrs["uids"]]
+        assert len(done) == 1 and done[0].start > sub.end
+
+
+def test_split_path_keeps_only_its_runner_span():
+    eng = LogicEngine(CompileSpec(n_unit=16), capacity=64, shard=True,
+                      device="cpu")
+    with obs.recording():
+        _serve(eng, [40, 30])
+    kids = _children(obs.spans())
+    runners = [s for s in obs.spans() if s.label == "runner"]
+    assert len(runners) == eng.invocations == 2
+    assert all(r.index not in kids for r in runners)
+    steps = [s for s in obs.spans() if s.label == "engine.step"]
+    assert all([c.label for c in kids[s.index]] == STEP for s in steps)
+
+
+def test_a_profiler_records_the_spans_as_its_own_ranges():
+    eng = LogicEngine(CompileSpec(n_unit=16), capacity=CAPACITY, device="cpu")
+    _serve(eng, [5])
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _serve(eng, [40, 8])
+    spans = Counter(s.label for s in obs.spans())
+    assert spans["engine.step"] == 2 and spans["engine.submit"] == 2
+    assert set(spans) == {"engine.step", "engine.submit", *STEP, *RUNNER}
+    ranges = Counter(e.name for e in prof.events() if e.name in spans)
+    assert ranges == spans
+    _serve(eng, [8])                              # the profiler has closed
+    assert Counter(s.label for s in obs.spans()) == spans
+
+
+def test_the_bound_drops_the_oldest_and_counts_them(monkeypatch):
+    monkeypatch.setattr(obs, "LIMIT", 4)
+    monkeypatch.setattr(obs, "_log", obs._Log())
+    with obs.recording():
+        for i in range(10):
+            with obs.span(f"s{i}", i=i):
+                pass
+    assert [s.label for s in obs.spans()] == ["s6", "s7", "s8", "s9"]
+    assert [s.attrs["i"] for s in obs.spans()] == [6, 7, 8, 9]
+    assert obs.dropped() == 6
+    obs.clear()
+    assert obs.spans() == [] and obs.dropped() == 0
+
+
+def test_each_thread_keeps_its_own_parent_stack():
+    both_open = threading.Barrier(2, timeout=10)
+    inner_done = threading.Barrier(2, timeout=10)
+
+    def work(name):
+        with obs.span(f"{name}.outer"):
+            both_open.wait()
+            with obs.span(f"{name}.inner"):
+                pass
+            inner_done.wait()
+
+    with obs.recording():
+        threads = [threading.Thread(target=work, args=(n,)) for n in "ab"]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=20)
+    assert not any(t.is_alive() for t in threads)
+    spans = {s.label: s for s in obs.spans()}
+    assert len(spans) == 4
+    for name in "ab":
+        outer, inner = spans[f"{name}.outer"], spans[f"{name}.inner"]
+        assert outer.parent is None and inner.parent == outer.index
+        assert inner.thread == outer.thread
+    assert spans["a.outer"].thread != spans["b.outer"].thread
