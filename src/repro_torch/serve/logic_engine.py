@@ -11,12 +11,17 @@ Three layers, as in the reference package:
    a structurally identical FFCL never recompiles.  Misses compile through
    the one :class:`~repro_torch.core.compiler.LogicCompiler` facade.
 
-2. **Slot/word batching** (:class:`LogicEngine` + ``batcher.SlotTable``) —
+2. **Slot/word batching** (:class:`LogicEngine` + :class:`RowRuns`) —
    incoming bit-vector requests are packed into the sample rows of one
    fixed-capacity ``(capacity, n_inputs)`` batch, i.e. the ``32 * W``
    samples of the packed ``(n_wires, W)`` word layout.  One invocation
    amortizes pack -> program(s) -> unpack across every queued request;
-   freed rows are recycled between invocation waves.
+   freed rows are recycled between invocation waves.  Rows are held as
+   ``[lo, hi)`` runs (``batcher.SlotTable``'s admission with ranges for
+   row indices), so a chunk's samples are copied in and out by slice, one
+   copy a run; a wave that is one chunk filling the whole batch from
+   C-contiguous, writeable inputs hands those inputs to the runner as
+   they are.
 
 3. **Execution** — each wave moves the ``(capacity, n_inputs)`` slab to
    the engine's device once, packs it there, runs the artifact's whole
@@ -33,6 +38,7 @@ completes in the first invocation wave it is admitted to.
 """
 from __future__ import annotations
 
+import bisect
 import threading
 import time
 import warnings
@@ -57,7 +63,6 @@ from repro_torch.core.verify import effective_mode, verify_artifact
 from repro_torch.kernels.logic_dsp.ops import (calibration_name, mega_arrays,
                                                mega_forward_words, pack_bits,
                                                resolve_device, unpack_bits)
-from repro_torch.serve.batcher import SlotTable
 
 
 # ---------------------------------------------------------------------------
@@ -713,6 +718,89 @@ class _Chunk:
 # the engine
 # ---------------------------------------------------------------------------
 
+class RowRuns:
+    """Row allocator over a fixed sample capacity that hands out runs.
+
+    ``batcher.SlotTable``'s contract with rows held as ``[lo, hi)`` runs
+    instead of row indices: ``acquire(n)`` returns ``None`` exactly when
+    ``SlotTable.acquire(n)`` would (fewer than ``n`` rows free), else the
+    ``n`` lowest free rows as a list of runs, lowest first; ``release``
+    takes such a list back and merges each run with its free neighbours.
+    Both cost O(runs), never O(rows).  ``capacity``, ``n_free``,
+    ``n_active`` and ``high_water`` mean what they mean on ``SlotTable``,
+    and a release raises as there: ``ValueError`` for a row out of range,
+    ``RuntimeError`` for a row not held (one that is free, or named twice).
+    """
+
+    def __init__(self, capacity: int):
+        if capacity < 1:
+            raise ValueError("capacity must be >= 1")
+        self.capacity = capacity
+        # free rows: sorted, disjoint, never adjacent
+        self._free: list[tuple[int, int]] = [(0, capacity)]
+        self._n_free = capacity
+        self.high_water = 0
+
+    @property
+    def n_free(self) -> int:
+        return self._n_free
+
+    @property
+    def n_active(self) -> int:
+        return self.capacity - self._n_free
+
+    def acquire(self, n: int) -> list[tuple[int, int]] | None:
+        """Reserve the ``n`` lowest free rows as runs; None when fewer than
+        ``n`` are free."""
+        if n < 0:
+            raise ValueError("n must be >= 0")
+        if n > self._n_free:
+            return None
+        free, runs, k, need = self._free, [], 0, n
+        while need:
+            lo, hi = free[k]
+            if hi - lo > need:
+                runs.append((lo, lo + need))
+                free[k] = (lo + need, hi)
+                break
+            runs.append((lo, hi))
+            need -= hi - lo
+            k += 1
+        del free[:k]
+        self._n_free -= n
+        self.high_water = max(self.high_water, self.n_active)
+        return runs
+
+    def release(self, runs) -> None:
+        """Return runs from :meth:`acquire`; checked whole before any is
+        freed, so a release that raises frees nothing."""
+        runs = sorted(runs)
+        free, end = self._free, 0
+        for lo, hi in runs:
+            if lo < 0 or hi > self.capacity or hi < lo:
+                raise ValueError(f"run [{lo}, {hi}) out of range")
+            if lo == hi:
+                continue
+            i = bisect.bisect_left(free, (lo,))
+            if lo < end or (i and free[i - 1][1] > lo):
+                raise RuntimeError(f"row {lo} released without being held")
+            if i < len(free) and free[i][0] < hi:
+                raise RuntimeError(
+                    f"row {free[i][0]} released without being held")
+            end = hi
+        for lo, hi in runs:
+            if lo == hi:
+                continue
+            self._n_free += hi - lo
+            i = bisect.bisect_left(free, (lo,))
+            if i and free[i - 1][1] == lo:
+                i -= 1
+                lo = free.pop(i)[0]
+            if i < len(free) and free[i][0] == hi:
+                hi = free.pop(i)[1]
+            free.insert(i, (lo, hi))
+
+
 class LogicEngine:
     """Continuous-batching inference engine over compiled logic programs.
 
@@ -812,7 +900,7 @@ class LogicEngine:
         # shard=True runs the split path even on one device
         self.shard = shard is True or (shard is None and n_dev > 1)
 
-        self.slots = SlotTable(self.capacity)
+        self.slots = RowRuns(self.capacity)
         self.max_retained = max_retained
         self._queues: OrderedDict[tuple, deque[_Chunk]] = OrderedDict()
         self._requests: dict[int, LogicRequest] = {}
@@ -1019,6 +1107,38 @@ class LogicEngine:
         if len(order) > 2 * len(retained) + 8:
             self._finished_order = deque(u for u in order if u in retained)
 
+    def _slab(self, n_inputs: int,
+              admitted: list[tuple[_Chunk, list]]) -> tuple[np.ndarray, bool]:
+        """The wave's ``(capacity, n_inputs)`` bool slab, and whether it is
+        the request's own rows (direct).
+
+        A wave that is one chunk over the single run ``[0, capacity)``
+        whose rows are C-contiguous and writeable (``torch.from_numpy``
+        warns on a read-only array) is its slab: no allocation, no copy.
+        Otherwise each run is one slice copy into a new slab, and the rows
+        outside the wave's runs are zeroed by slice."""
+        if len(admitted) == 1:
+            chunk, runs = admitted[0]
+            if runs == [(0, self.capacity)]:
+                view = chunk.req.inputs[chunk.lo:chunk.hi]
+                if view.flags.c_contiguous and view.flags.writeable:
+                    return view, True
+        bits = np.empty((self.capacity, n_inputs), dtype=bool)
+        held = []
+        for chunk, runs in admitted:
+            src, at = chunk.req.inputs, chunk.lo
+            for lo, hi in runs:
+                bits[lo:hi] = src[at:at + hi - lo]
+                at += hi - lo
+            held += runs
+        at = 0
+        for lo, hi in sorted(held):
+            if at < lo:
+                bits[at:lo] = False
+            at = hi
+        bits[at:] = False
+        return bits, False
+
     def step(self) -> list[int]:
         """One invocation wave: admit, execute, scatter back, recycle.
 
@@ -1027,10 +1147,18 @@ class LogicEngine:
         then runs ONE kernel launch for all of them. Returns the uids
         completed this wave.
 
+        Rows are held as runs (:class:`RowRuns`): each chunk's samples go
+        into the slab, and its outputs back into the request's result, one
+        slice copy a run; a wave that is one whole-capacity chunk runs on
+        the request's own rows where they can be handed over as they are
+        (:meth:`_slab`).
+
         The wave is the span ``engine.step`` (``repro_torch.obs``; its
         attributes the wave's number, its samples and the uids it
-        completed) over ``engine.admit``, ``engine.slab``, the runner's
-        ``runner`` and ``engine.retire``.
+        completed) over ``engine.admit``, ``engine.slab`` (noting whether
+        the slab was ``direct`` and the ``runs`` the wave holds: one slice
+        copy each on the slab path), the runner's ``runner`` and
+        ``engine.retire``.
         """
         key = next((k for k, q in self._queues.items() if q), None)
         if key is None:
@@ -1046,29 +1174,32 @@ class LogicEngine:
         elif self._exec_key not in entry.runners:
             entry.runners[self._exec_key] = self._build_runner(entry)
         with obs.span("engine.step") as wave:
-            admitted: list[tuple[_Chunk, np.ndarray]] = []
+            admitted: list[tuple[_Chunk, list]] = []
             with obs.span("engine.admit"):
                 while queue:
-                    rows = self.slots.acquire(queue[0].n)
-                    if rows is None:
+                    runs = self.slots.acquire(queue[0].n)
+                    if runs is None:
                         break
-                    admitted.append((queue.popleft(), rows))
+                    admitted.append((queue.popleft(), runs))
             if not admitted:
                 return []
 
-            with obs.span("engine.slab"):
-                bits = np.zeros((self.capacity, entry.n_inputs), dtype=bool)
-                for chunk, rows in admitted:
-                    bits[rows] = chunk.req.inputs[chunk.lo:chunk.hi]
+            with obs.span("engine.slab") as sp:
+                bits, direct = self._slab(entry.n_inputs, admitted)
+                sp.note(direct=direct,
+                        runs=sum(len(runs) for _, runs in admitted))
             out = entry.runners[self._exec_key](bits)
 
             with obs.span("engine.retire"):
                 finished: list[int] = []
                 n_active = sum(c.n for c, _ in admitted)
-                for chunk, rows in admitted:
-                    chunk.req.result[chunk.lo:chunk.hi] = out[rows]
+                for chunk, runs in admitted:
+                    result, at = chunk.req.result, chunk.lo
+                    for lo, hi in runs:
+                        result[at:at + hi - lo] = out[lo:hi]
+                        at += hi - lo
                     chunk.req.pending_chunks -= 1
-                    self.slots.release(rows)
+                    self.slots.release(runs)
                     if chunk.req.pending_chunks == 0:
                         chunk.req.done = True
                         finished.append(chunk.req.uid)

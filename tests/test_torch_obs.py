@@ -102,6 +102,24 @@ def test_recording_gives_the_waves_span_tree(chain):
         assert len(done) == 1 and done[0].start > sub.end
 
 
+def test_the_direct_path_records_every_step_span_once_a_wave():
+    """Waves of one whole-capacity request hand the request's rows to the
+    runner, and still record admit, slab and retire once each."""
+    eng = LogicEngine(CompileSpec(n_unit=16), capacity=CAPACITY, device="cpu")
+    _serve(eng, [5])
+    with obs.recording():
+        _serve(eng, [CAPACITY] * 3 + [2 * CAPACITY])
+    spans = obs.spans()
+    steps = [s for s in spans if s.label == "engine.step"]
+    assert len(steps) == 5 == eng.invocations - 1
+    kids = _children(spans)
+    assert all([c.label for c in kids[s.index]] == STEP for s in steps)
+    counts = Counter(s.label for s in spans)
+    assert all(counts[label] == 5 for label in STEP)
+    slabs = [s for s in spans if s.label == "engine.slab"]
+    assert all(s.attrs == {"direct": True, "runs": 1} for s in slabs)
+
+
 def test_split_path_keeps_only_its_runner_span():
     eng = LogicEngine(CompileSpec(n_unit=16), capacity=64, shard=True,
                       device="cpu")
