@@ -4,7 +4,8 @@
 # copied verbatim, only the repro imports differ.  mlp_to_logic_network is
 # the reference's but for one line: it takes the parameters to the host
 # with host_params, so the tensors train_binary_mlp returns on the card
-# convert as they are.
+# convert as they are.  layer_to_graph samples every neuron's ISF through
+# layer_isfs (the same arrays) and records its span.
 """NullaNet flow (paper §7): binarized NN -> per-neuron Boolean functions.
 
 Pipeline (faithful to [Nazemi et al. 2019] / NullaNet Tiny as summarized in
@@ -21,12 +22,14 @@ and the same dict cross between the packages
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.core import espresso
 from repro_torch.core.gate_ir import LogicGraph
 from repro_torch.kernels.logic_dsp.ops import resolve_device
@@ -191,6 +194,21 @@ def neuron_enumerated(w: np.ndarray, b: float) -> tuple[np.ndarray, np.ndarray]:
     return pats[acts], pats[~acts]
 
 
+def layer_isfs(x_bits: np.ndarray, W: np.ndarray, b: np.ndarray):
+    """Each neuron's ISF in neuron order: ``neuron_isf(x_bits, W[:, j],
+    b[j])`` for every column ``j``, with the patterns' +-1 form and their
+    deduplication, which no neuron changes, computed once for the layer
+    (at VGG16 conv8's 400 x 2,304 patterns, 512 neurons: 1 s against 37 s
+    a neuron at a time)."""
+    x_bits = np.asarray(x_bits, dtype=np.uint8)
+    pm1 = 2.0 * x_bits - 1.0
+    pats, idx = np.unique(x_bits, axis=0, return_index=True)
+    for j in range(W.shape[1]):
+        acts = (pm1 @ np.asarray(W[:, j]) + float(b[j])) >= 0
+        out = acts[idx]
+        yield pats[out], pats[~out]
+
+
 def layer_to_graph(x_bits: np.ndarray, W: np.ndarray, b: np.ndarray,
                    mode: str = "auto", name: str = "layer",
                    optimize="default") -> LogicGraph:
@@ -200,22 +218,30 @@ def layer_to_graph(x_bits: np.ndarray, W: np.ndarray, b: np.ndarray,
     optimize: gate-level optimization of the factored graph —
       ``"default"`` (the core/opt.py default pipeline), ``"none"`` (raw
       espresso factoring), or a :class:`~repro.core.opt.PassManager`.
+    The conversion is the span ``nullanet.layer_to_graph``
+    (``repro_torch.obs``), noting its neurons, fanin and seconds.
     """
     fanin, n_neurons = W.shape
     if mode == "auto":
         mode = "enum" if fanin <= ENUM_LIMIT else "isf"
-    cube_sets = []
-    for j in range(n_neurons):
-        if mode == "enum":
-            x_on, x_off = neuron_enumerated(W[:, j], float(b[j]))
-        else:
-            x_on, x_off = neuron_isf(x_bits, W[:, j], float(b[j]))
-        cubes = espresso.minimize(x_on, x_off)
-        assert espresso.check_cover(cubes, x_on, x_off), \
-            f"minimization broke neuron {j}"
-        cube_sets.append(cubes)
-    return espresso.sop_to_graph(cube_sets, n_inputs=fanin, name=name,
-                                 optimize=optimize)
+    if mode == "enum":
+        isfs = (neuron_enumerated(W[:, j], float(b[j]))
+                for j in range(n_neurons))
+    else:
+        isfs = layer_isfs(x_bits, W, b)
+    with obs.span("nullanet.layer_to_graph", neurons=n_neurons,
+                  fanin=fanin) as sp:
+        t0 = time.perf_counter()
+        cube_sets = []
+        for j, (x_on, x_off) in enumerate(isfs):
+            cubes = espresso.minimize(x_on, x_off)
+            assert espresso.check_cover(cubes, x_on, x_off), \
+                f"minimization broke neuron {j}"
+            cube_sets.append(cubes)
+        graph = espresso.sop_to_graph(cube_sets, n_inputs=fanin, name=name,
+                                      optimize=optimize)
+        sp.note(seconds=time.perf_counter() - t0)
+    return graph
 
 
 # ---------------------------------------------------------------------------

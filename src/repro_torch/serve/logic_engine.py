@@ -968,13 +968,18 @@ class LogicEngine:
 
         The runner is the span ``runner`` (``repro_torch.obs``); on one
         device its phases are ``runner.h2d``, ``runner.pack``,
-        ``runner.kernel`` (the launch's enqueue), ``runner.unpack`` and
-        ``runner.d2h`` (the wait for the stream, then the copy back).
+        ``runner.kernel`` (the launch's enqueue, noting the launch plan:
+        its ``scratch`` variant, ``steps``, ``n_addr`` rows and ``cols``
+        a block), ``runner.unpack`` and ``runner.d2h`` (the wait for the
+        stream, then the copy back).
         """
         mega = entry.artifact.megaprogram()
         for dev in dict.fromkeys(self.devices):
             mega_arrays(mega, dev)
         device, use_ref = self.device, self.use_ref
+        plan = mega_arrays(mega, device)["plan"]
+        plan_note = dict(scratch=plan.scratch, steps=mega.total_steps,
+                         n_addr=mega.n_addr, cols=plan.cols)
 
         if not self.shard:
             def run(bits: np.ndarray) -> np.ndarray:
@@ -983,7 +988,8 @@ class LogicEngine:
                         x = torch.from_numpy(bits).to(device)
                     with obs.span("runner.pack"):
                         words = pack_bits(x)
-                    with obs.span("runner.kernel"):
+                    with obs.span("runner.kernel") as sp:
+                        sp.note(**plan_note)
                         ow = mega_forward_words(mega, words, use_ref=use_ref)
                     with obs.span("runner.unpack"):
                         y = unpack_bits(ow, bits.shape[0])

@@ -21,11 +21,14 @@ import pytest
 
 from repro.core.compiler import LogicCompiler as RefCompiler
 from repro.core.gate_ir import random_graph as ref_random_graph
+from repro.core.espresso import expand_cube as ref_expand_cube
 from repro.core.nullanet import layer_to_graph as ref_layer_to_graph
+from repro.core.nullanet import neuron_isf as ref_neuron_isf
 from repro.core.spec import CompileSpec as RefSpec
 from repro_torch.core.compiler import LogicCompiler
 from repro_torch.core.gate_ir import random_graph
-from repro_torch.core.nullanet import layer_to_graph
+from repro_torch.core.espresso import expand_cube
+from repro_torch.core.nullanet import layer_isfs, layer_to_graph
 from repro_torch.core.spec import CompileSpec
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -46,7 +49,7 @@ COPIED_DEFS = {
                          "cell_supported", "all_cells"),
     "serve/batcher": ("Request", "RequestBatcher", "SlotTable"),
     "core/nullanet": ("ENUM_LIMIT", "neuron_isf", "neuron_enumerated",
-                      "layer_to_graph", "LogicNetwork", "BinaryMLPConfig"),
+                      "LogicNetwork", "BinaryMLPConfig"),
     "flow/classifier": ("input_bits", "hard_forward"),
     "flow/report": ("FlowConfig", "EndToEndReport"),
     "serve/logic_engine": ("_resolve_cache_spec", "CompiledEntry",
@@ -98,6 +101,105 @@ ADAPTED_DEFS = {
          'return {"tokens": _meta((b, s), i32)}'),
         ('return {"tokens": jax.ShapeDtypeStruct((b, 1), i32)}',
          'return {"tokens": _meta((b, 1), i32)}')],
+    # EXPAND takes the literals a block at a time with the outcome of one
+    # at a time (the same cubes), so VGG16's 2,304-input neurons minimize
+    # in a set-up's time
+    ("core/espresso", "expand_cube"): [
+        ("""    fanins (2304-4608 literals).\"\"\"""",
+         """    fanins (2304-4608 literals).
+
+    The literals are taken in blocks with the same outcome as one at a
+    time: with every literal of a block dropped in turn, a row's count
+    before literal t is its count less its mismatches at the block's
+    earlier literals, so the first literal at which some row's running
+    sum of mismatches reaches its count is the first one kept; the
+    literals before it drop, and the search goes on past it with that
+    literal's mismatches added back to the counts. A block that drops
+    whole doubles the next (16 up to 1024 literals); one that keeps a
+    literal sends the next back to 16.\"\"\""""),
+        ("""    mismatch = (X_off != val) & mask          # (n_off, v)
+    counts = mismatch.sum(axis=1)             # per off-minterm
+    for i in order:
+        if not mask[i]:
+            continue
+        col = mismatch[:, i]
+        if np.any(col & (counts == 1)):
+            continue                           # would cover an off-minterm
+        mask[i] = False
+        counts = counts - col
+        mismatch[:, i] = False
+""", """    # mismatch[i, r]: off-minterm r differs from the cube at literal i
+    mismatch = np.ascontiguousarray(X_off.T) != val[:, None]
+    mismatch &= mask[:, None]
+    # a row with no mismatch left never blocks a drop (its sums stay 0)
+    limit = np.add.reduce(mismatch, axis=0, dtype=np.int32)
+    np.maximum(limit, 1, out=limit)
+    todo = order[mask[order]]
+    pos, block = 0, 16
+    while pos < todo.size:
+        chunk = todo[pos:pos + block]
+        pos += chunk.size
+        rows = mismatch[chunk]
+        total = np.add.reduce(rows, axis=0, dtype=np.int32)
+        if (total < limit).all():          # the whole block drops
+            mask[chunk] = False
+            limit -= total
+            block = min(2 * block, 1024)
+            continue
+        sums = np.cumsum(rows, axis=0, dtype=np.int32)
+        kept = np.zeros(chunk.size, dtype=bool)
+        at = 0
+        while at < chunk.size:
+            hit = (sums[at:] >= limit).any(axis=1)
+            if not hit[-1]:
+                break
+            at += int(hit.argmax())
+            kept[at] = True
+            limit += rows[at]          # a kept literal's mismatches stay
+            at += 1
+        mask[chunk[~kept]] = False
+        limit -= sums[-1]
+        block = 16
+""")],
+    # the layer's ISFs are sampled in one pass (layer_isfs: neuron_isf's
+    # arrays, without a deduplication a neuron), under a span
+    ("core/nullanet", "layer_to_graph"): [
+        ("""      espresso factoring), or a :class:`~repro.core.opt.PassManager`.
+    \"\"\"""",
+         """      espresso factoring), or a :class:`~repro.core.opt.PassManager`.
+    The conversion is the span ``nullanet.layer_to_graph``
+    (``repro_torch.obs``), noting its neurons, fanin and seconds.
+    \"\"\""""),
+        ("""    cube_sets = []
+    for j in range(n_neurons):
+        if mode == "enum":
+            x_on, x_off = neuron_enumerated(W[:, j], float(b[j]))
+        else:
+            x_on, x_off = neuron_isf(x_bits, W[:, j], float(b[j]))
+        cubes = espresso.minimize(x_on, x_off)
+        assert espresso.check_cover(cubes, x_on, x_off), \\
+            f"minimization broke neuron {j}"
+        cube_sets.append(cubes)
+    return espresso.sop_to_graph(cube_sets, n_inputs=fanin, name=name,
+                                 optimize=optimize)""",
+         """    if mode == "enum":
+        isfs = (neuron_enumerated(W[:, j], float(b[j]))
+                for j in range(n_neurons))
+    else:
+        isfs = layer_isfs(x_bits, W, b)
+    with obs.span("nullanet.layer_to_graph", neurons=n_neurons,
+                  fanin=fanin) as sp:
+        t0 = time.perf_counter()
+        cube_sets = []
+        for j, (x_on, x_off) in enumerate(isfs):
+            cubes = espresso.minimize(x_on, x_off)
+            assert espresso.check_cover(cubes, x_on, x_off), \\
+                f"minimization broke neuron {j}"
+            cube_sets.append(cubes)
+        graph = espresso.sop_to_graph(cube_sets, n_inputs=fanin, name=name,
+                                      optimize=optimize)
+        sp.note(seconds=time.perf_counter() - t0)
+    return graph""")],
     # they take the parameters to the host, so torch tensors on the card
     # convert as they are
     ("core/nullanet", "mlp_to_logic_network"): [
@@ -331,3 +433,53 @@ def test_layer_to_graph_same_fingerprint():
     port = layer_to_graph(x_bits, W, b, mode="isf", name="fc")
     assert port.n_gates > 0
     assert port.fingerprint() == ref.fingerprint()
+
+
+@pytest.fixture(scope="module")
+def wide_layer():
+    """A layer past 2,048 inputs (VGG16's conv layers: 2,304-4,608) and
+    the reference's graph of it, synthesized one neuron after another."""
+    rng = np.random.default_rng(2100)
+    x_bits = rng.integers(0, 2, (48, 2100)).astype(np.uint8)
+    x_bits[9] = x_bits[2]
+    W = rng.normal(size=(2100, 5)).astype(np.float32)
+    b = (0.1 * rng.normal(size=5)).astype(np.float32)
+    return x_bits, W, b, ref_layer_to_graph(x_bits, W, b, mode="isf")
+
+
+def test_layer_to_graph_same_fingerprint_past_2048_inputs(wide_layer):
+    """EXPAND by blocks and the layer's ISFs in one pass give the
+    reference's graph at VGG widths."""
+    x_bits, W, b, ref = wide_layer
+    port = layer_to_graph(x_bits, W, b, mode="isf")
+    assert port.n_gates == ref.n_gates > 0
+    assert port.fingerprint() == ref.fingerprint()
+
+
+def test_layer_isfs_are_neuron_isf(wide_layer):
+    x_bits, W, b, _ = wide_layer
+    isfs = list(layer_isfs(x_bits, W, b))
+    assert len(isfs) == W.shape[1]
+    for j, (x_on, x_off) in enumerate(isfs):
+        want_on, want_off = ref_neuron_isf(x_bits, W[:, j], float(b[j]))
+        np.testing.assert_array_equal(x_on, want_on)
+        np.testing.assert_array_equal(x_off, want_off)
+
+
+def test_expand_cube_by_blocks_keeps_the_references_literals():
+    """Random cubes, off-sets and orders over up to 1,300 literals (the
+    blocks grow from 16 to 1,024), with off-rows the cube already matches
+    (no mismatch left to drop): the same literals survive."""
+    rng = np.random.default_rng(256)
+    for trial in range(300):
+        v, n = int(rng.integers(1, 1300)), int(rng.integers(0, 90))
+        p = rng.uniform(0.05, 0.95)
+        X_off = (rng.random((n, v)) < p).astype(np.uint8)
+        val = (rng.random(v) < p).astype(np.uint8)
+        mask = rng.random(v) < rng.uniform(0.3, 1.0)
+        if trial % 4 == 0 and n:
+            X_off[0] = np.where(mask, val, X_off[0])
+        order = rng.permutation(v)
+        want, _ = ref_expand_cube(mask, val, X_off, order)
+        got, _ = expand_cube(mask, val, X_off, order)
+        np.testing.assert_array_equal(got, want)

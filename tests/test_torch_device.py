@@ -458,6 +458,30 @@ def test_program_too_large_for_shared_memory_on_card(cuda):
 
 
 @pytest.mark.cuda
+def test_engine_serves_the_device_variant_on_card(cuda):
+    """A program past a block's shared memory through ``LogicEngine``:
+    one device-scratch K2 launch a wave, noted on ``runner.kernel``,
+    bit-exact against the graph."""
+    from repro_torch import obs
+    g = random_graph(np.random.default_rng(4), 64, 66_000, 32,
+                     unary_frac=0.2, locality=256)
+    eng = LogicEngine(CompileSpec(n_unit=256, alloc="direct",
+                                  optimize="none"), capacity=256)
+    x = _bits(4, 600, 64)
+    obs.clear()
+    before = {v: native.launch_count("mega", v) for v in ("shared", "device")}
+    with obs.recording():
+        np.testing.assert_array_equal(eng.serve(g, x), g.evaluate(x))
+    waves = eng.stats()["invocations"]
+    launched = {v: native.launch_count("mega", v) - n
+                for v, n in before.items()}
+    assert waves == 3 and launched == {"shared": 0, "device": 3}
+    notes = [s.attrs for s in obs.spans() if s.label == "runner.kernel"]
+    assert len(notes) == 3 and all(n["scratch"] == "device" for n in notes)
+    assert notes[0]["n_addr"] > 60_000
+
+
+@pytest.mark.cuda
 def test_engine_one_launch_per_wave_on_card(cuda):
     g, _ = _prog(5, n_gates=400)
     eng = LogicEngine(CompileSpec(n_unit=16, max_gates=150), capacity=64)

@@ -1,6 +1,7 @@
 """The port's own spans (``repro_torch.obs``): nothing recorded while no one
 listens, the wave's span tree under ``recording()`` and under a profiler,
-the log's bound, and one parent stack a thread."""
+the log's bound, and one parent stack a thread; the launch plan the
+runner notes, and synthesis's span."""
 import threading
 from collections import Counter
 
@@ -10,7 +11,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import obs
 from repro_torch.core.gate_ir import random_graph
+from repro_torch.core.nullanet import layer_to_graph
 from repro_torch.core.spec import CompileSpec
+from repro_torch.kernels.logic_dsp.ops import mega_arrays
 from repro_torch.serve import LogicEngine
 
 STEP = ["engine.admit", "engine.slab", "runner", "engine.retire"]
@@ -186,3 +189,36 @@ def test_each_thread_keeps_its_own_parent_stack():
         assert outer.parent is None and inner.parent == outer.index
         assert inner.thread == outer.thread
     assert spans["a.outer"].thread != spans["b.outer"].thread
+
+
+def test_runner_kernel_notes_the_launch_plan():
+    """The launch's span names the plan K2 runs: the scratch variant, the
+    program's steps and rows, and the columns a block."""
+    eng = LogicEngine(CompileSpec(n_unit=16), capacity=CAPACITY, device="cpu")
+    _serve(eng, [5])
+    with obs.recording():
+        _serve(eng, [CAPACITY, 9])
+    mega = next(iter(eng.cache._entries.values())).artifact.megaprogram()
+    plan = mega_arrays(mega, "cpu")["plan"]
+    kernels = [s for s in obs.spans() if s.label == "runner.kernel"]
+    assert len(kernels) == 2
+    assert all(s.attrs == {"scratch": plan.scratch, "steps": mega.total_steps,
+                           "n_addr": mega.n_addr, "cols": plan.cols}
+               for s in kernels)
+    assert plan.scratch == "shared"
+
+
+def test_synthesis_records_its_span():
+    rng = np.random.default_rng(7)
+    x = rng.integers(0, 2, (40, 20)).astype(np.uint8)
+    W = rng.standard_normal((20, 6)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(6)).astype(np.float32)
+    layer_to_graph(x, W, b, mode="isf")
+    assert obs.spans() == []
+    with obs.recording():
+        layer_to_graph(x, W, b, mode="isf")
+    (sp,) = obs.spans()
+    assert sp.label == "nullanet.layer_to_graph" and sp.parent is None
+    assert {k: sp.attrs[k] for k in ("neurons", "fanin")} == \
+        {"neurons": 6, "fanin": 20}
+    assert 0 < sp.attrs["seconds"] <= sp.end - sp.start
