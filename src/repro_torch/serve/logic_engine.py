@@ -24,7 +24,8 @@ Three layers, as in the reference package:
    they are.
 
 3. **Execution** — each wave moves the ``(capacity, n_inputs)`` slab to
-   the engine's device once, packs it there, runs the artifact's whole
+   the engine's device once (on CUDA through reused pinned buffers, a
+   chunk of rows at a time), packs it there, runs the artifact's whole
    :class:`~repro_torch.core.scheduler.MegaProgram` (monolithic,
    partitioned or chained) in ONE launch of the CUDA mega kernel, and
    unpacks.  Across devices (the reference's ``shard_map`` over a 1-axis
@@ -801,6 +802,68 @@ class RowRuns:
             free.insert(i, (lo, hi))
 
 
+#: The slab's bytes a staged chunk carries.  Chunk k's DMA runs while the
+#: host fills chunk k+1, but on an H100's host the two share the memory
+#: bandwidth: an 18.9 MB slab's fill and DMA took 1.27 ms at 8 MB chunks,
+#: 1.31 ms whole, 1.46 ms at 4 MB and 2.27 ms at 1 MB (PERF.md §6).
+STAGE_CHUNK_BYTES = 8 << 20
+
+
+def stage_rows(bits: np.ndarray, host: torch.Tensor,
+               dev: torch.Tensor) -> int:
+    """Copy ``bits``' rows into ``host`` a chunk of rows at a time, and
+    after each chunk enqueue its copy from ``host`` to ``dev`` without
+    waiting, so one chunk's transfer runs while the next is filled.  The
+    fill is torch's CPU ``copy_``, spread over its intra-op threads.
+    Returns the number of chunks."""
+    n = len(bits)
+    step = max(1, STAGE_CHUNK_BYTES // max(1, bits.shape[1] * bits.itemsize))
+    src = torch.from_numpy(bits)
+    for lo in range(0, n, step):
+        host[lo:lo + step].copy_(src[lo:lo + step])
+        dev[lo:lo + step].copy_(host[lo:lo + step], non_blocking=True)
+    return -(-n // step)
+
+
+class _Staging:
+    """One thread's reused transfer buffers for a runner on a CUDA device:
+    the slab in through a pinned host buffer and a device buffer, the
+    outputs back through a pinned host buffer.  Each is allocated at the
+    first wave and again only for a slab with more rows."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.host_in = self.dev_in = self.host_out = None
+        self.h2d_done = torch.cuda.Event()
+
+    def h2d(self, bits: np.ndarray) -> tuple[torch.Tensor, int]:
+        """The slab on the device, after its chunks' copies are enqueued on
+        the current stream; and the number of chunks."""
+        n = len(bits)
+        if self.host_in is None or len(self.host_in) < n:
+            self.host_in = torch.empty(bits.shape, dtype=torch.bool,
+                                       pin_memory=True)
+            self.dev_in = torch.empty(bits.shape, dtype=torch.bool,
+                                      device=self.device)
+        else:
+            # the previous wave's copies have left the pinned buffer
+            self.h2d_done.synchronize()
+        chunks = stage_rows(bits, self.host_in[:n], self.dev_in[:n])
+        self.h2d_done.record(torch.cuda.current_stream(self.device))
+        return self.dev_in[:n], chunks
+
+    def d2h(self, y: torch.Tensor) -> np.ndarray:
+        """``y`` copied into the pinned output buffer, once the stream has
+        run up to it: a view valid until this thread's next wave."""
+        if self.host_out is None or len(self.host_out) < len(y):
+            self.host_out = torch.empty(y.shape, dtype=torch.bool,
+                                        pin_memory=True)
+        out = self.host_out[:len(y)]
+        out.copy_(y, non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        return out.numpy()
+
+
 class LogicEngine:
     """Continuous-batching inference engine over compiled logic programs.
 
@@ -966,12 +1029,21 @@ class LogicEngine:
         synchronized and the blocks are concatenated in order.  A shard
         that fails raises.
 
+        On one CUDA device the slab is staged (:class:`_Staging`, one set
+        of buffers a calling thread, dropped with the runner): the host's
+        threads fill a reused pinned buffer a chunk of rows at a time
+        (:func:`stage_rows`), each chunk's copy to a reused device buffer
+        enqueued as soon as it is filled, and the outputs come back
+        through a reused pinned buffer.  The array returned is then a view
+        of that buffer, valid until the thread's next call.
+
         The runner is the span ``runner`` (``repro_torch.obs``); on one
-        device its phases are ``runner.h2d``, ``runner.pack``,
+        device its phases are ``runner.h2d`` (noting whether the slab was
+        ``staged``, its ``chunks`` and ``bytes``), ``runner.pack``,
         ``runner.kernel`` (the launch's enqueue, noting the launch plan:
         its ``scratch`` variant, ``steps``, ``n_addr`` rows and ``cols``
-        a block), ``runner.unpack`` and ``runner.d2h`` (the wait for the
-        stream, then the copy back).
+        a block), ``runner.unpack`` and ``runner.d2h`` (the copy back and
+        the wait for the stream, noting ``staged``).
         """
         mega = entry.artifact.megaprogram()
         for dev in dict.fromkeys(self.devices):
@@ -982,10 +1054,25 @@ class LogicEngine:
                          n_addr=mega.n_addr, cols=plan.cols)
 
         if not self.shard:
+            staged = device.type == "cuda"
+            # engines on one device share a cache entry's runner, and the
+            # cache serves threads: each thread stages through its own
+            # buffers
+            local = threading.local()
+
             def run(bits: np.ndarray) -> np.ndarray:
+                if staged:
+                    stage = getattr(local, "stage", None)
+                    if stage is None:
+                        stage = local.stage = _Staging(device)
                 with obs.span("runner"):
-                    with obs.span("runner.h2d"):
-                        x = torch.from_numpy(bits).to(device)
+                    with obs.span("runner.h2d") as sp:
+                        if staged:
+                            x, chunks = stage.h2d(bits)
+                        else:
+                            x, chunks = torch.from_numpy(bits).to(device), 0
+                        sp.note(staged=staged, chunks=chunks,
+                                bytes=bits.nbytes)
                     with obs.span("runner.pack"):
                         words = pack_bits(x)
                     with obs.span("runner.kernel") as sp:
@@ -993,9 +1080,11 @@ class LogicEngine:
                         ow = mega_forward_words(mega, words, use_ref=use_ref)
                     with obs.span("runner.unpack"):
                         y = unpack_bits(ow, bits.shape[0])
-                    with obs.span("runner.d2h"):
-                        return y.cpu().numpy()
+                    with obs.span("runner.d2h") as sp:
+                        sp.note(staged=staged)
+                        return stage.d2h(y) if staged else y.cpu().numpy()
 
+            run.local = local       # ``run.local.stage``: a thread's buffers
             return run
 
         devices = self.devices

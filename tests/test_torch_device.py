@@ -33,6 +33,7 @@ from repro_torch.kernels.xnor_gemm import (pack_pm1, xnor_and_popc_ref,
 from repro_torch.kernels.xnor_gemm import kernel as _xk
 from repro_torch.serve import (FrontDoor, LogicEngine, ProgramCache,
                                decode_step, init_decode_cache, prefill)
+from repro_torch.serve.logic_engine import STAGE_CHUNK_BYTES
 from repro_torch.configs import get_config
 from repro_torch.examples import quickstart
 from repro_torch.launch import serve as launch_serve
@@ -479,6 +480,88 @@ def test_engine_serves_the_device_variant_on_card(cuda):
     notes = [s.attrs for s in obs.spans() if s.label == "runner.kernel"]
     assert len(notes) == 3 and all(n["scratch"] == "device" for n in notes)
     assert notes[0]["n_addr"] > 60_000
+
+
+def _staged_waves(cuda, g, spec, waves=4):
+    """Back-to-back waves of different slabs through the engine's runner
+    for ``g`` at capacity 8,192: each wave's output against
+    ``mega_infer_bits``, before the next wave reuses the buffers; the
+    runner's buffers after each wave; its ``runner.h2d`` notes."""
+    from repro_torch import obs
+    eng = LogicEngine(spec, capacity=8192, device=cuda)
+    entry = eng._entry(g)
+    run, mega = entry.runners[eng._exec_key], entry.artifact.megaprogram()
+    bufs = []
+    obs.clear()
+    with obs.recording():
+        for w in range(waves):
+            x = _bits(100 + w, 8192, g.n_inputs)
+            got = run(x)
+            np.testing.assert_array_equal(
+                got, ops.mega_infer_bits(mega, x, device=cuda))
+            np.testing.assert_array_equal(got, execute_megaprogram_np(mega, x))
+            stage = run.local.stage
+            bufs.append([(b.is_pinned(), b.data_ptr()) for b in
+                         (stage.host_in, stage.host_out)]
+                        + [(b.is_cuda, b.data_ptr()) for b in (stage.dev_in,)])
+    notes = [s.attrs for s in obs.spans() if s.label == "runner.h2d"]
+    return entry, bufs, notes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["fc1_widths", "device_variant"])
+def test_staged_runner_matches_mega_infer_bits_on_card(cuda, case):
+    """The staged runner, wave after wave with different slabs, equals
+    ``mega_infer_bits`` bit for bit; its pinned and device buffers are
+    allocated at the first wave and kept; ``runner.h2d`` notes the chunks
+    (a conv8-sized slab, 8,192 x 2,304 bits, takes several)."""
+    if case == "fc1_widths":
+        g = random_graph(np.random.default_rng(6), 400, 3_000, 120,
+                         unary_frac=0.2, locality=256)
+        spec = CompileSpec(n_unit=256, optimize="none")
+    else:
+        g = random_graph(np.random.default_rng(7), 2304, 66_000, 32,
+                         unary_frac=0.2, locality=256)
+        spec = CompileSpec(n_unit=256, alloc="direct", optimize="none")
+    entry, bufs, notes = _staged_waves(cuda, g, spec)
+    plan = ops.mega_arrays(entry.artifact.megaprogram(), cuda)["plan"]
+    assert plan.scratch == ("shared" if case == "fc1_widths" else "device")
+    assert all(p for b in bufs for p, _ in b)
+    assert all(b == bufs[0] for b in bufs[1:])
+    nbytes = 8192 * g.n_inputs
+    want = -(-8192 // max(1, STAGE_CHUNK_BYTES // g.n_inputs))
+    assert notes == [dict(staged=True, chunks=want, bytes=nbytes)] * 4
+    if case == "device_variant":
+        assert want >= 2
+
+
+@pytest.mark.cuda
+def test_staged_runner_gives_each_thread_its_buffers_on_card(cuda):
+    """Two threads calling one runner at once each stage through buffers
+    of their own, and each gets its own slabs' outputs."""
+    from concurrent.futures import ThreadPoolExecutor
+    g = random_graph(np.random.default_rng(6), 400, 3_000, 120,
+                     unary_frac=0.2, locality=256)
+    eng = LogicEngine(CompileSpec(n_unit=256, optimize="none"),
+                      capacity=8192, device=cuda)
+    entry = eng._entry(g)
+    run, mega = entry.runners[eng._exec_key], entry.artifact.megaprogram()
+
+    def waves(seed):
+        out = []
+        for w in range(4):
+            x = _bits(seed + w, 8192, g.n_inputs)
+            out.append((x, np.array(run(x))))
+        return out, run.local.stage
+
+    with ThreadPoolExecutor(2) as ex:
+        done = [f.result(timeout=300)
+                for f in [ex.submit(waves, s) for s in (200, 300)]]
+    assert done[0][1] is not done[1][1]
+    for out, _ in done:
+        for x, got in out:
+            np.testing.assert_array_equal(
+                got, ops.mega_infer_bits(mega, x, device=cuda))
 
 
 @pytest.mark.cuda

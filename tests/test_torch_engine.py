@@ -10,6 +10,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core.compiler import LogicCompiler as RefCompiler
 from repro.core.gate_ir import random_graph as ref_random_graph
@@ -27,7 +28,8 @@ from repro_torch.core.scheduler import execute_program_np
 from repro_torch.core.spec import CompileSpec
 from repro_torch.kernels.logic_dsp.ops import logic_infer_bits, mega_infer_bits
 from repro_torch.serve import LogicEngine, ProgramCache, SlotTable
-from repro_torch.serve.logic_engine import RowRuns
+from repro_torch.serve.logic_engine import (STAGE_CHUNK_BYTES, RowRuns,
+                                            stage_rows)
 
 SIZES = [1, 33, 70, 5, 64, 130]          # ragged; 130 spans three waves
 
@@ -430,6 +432,78 @@ def test_eviction_and_empty_requests():
     assert eng.result(u3).shape == (0, g1.n_outputs)
     with pytest.raises(KeyError):
         eng.result(u1)
+
+
+# ---------------------------------------------------------------------------
+# the runner's staged transfer (plain CPU tensors stand in for the pinned
+# and the device buffer)
+# ---------------------------------------------------------------------------
+
+class _EnqueuedCopies:
+    """Stands in for the device buffer: each chunk's copy is kept as it
+    was enqueued (its rows, the bytes then in the source, ``non_blocking``)
+    and written through."""
+
+    def __init__(self, shape):
+        self.buf = torch.zeros(shape, dtype=torch.bool)
+        self.copies = []
+
+    def __getitem__(self, rows):
+        dst = self.buf[rows]
+        lo = range(len(self.buf))[rows].start
+        copies = self.copies
+
+        class _Rows:
+            def copy_(self, src, non_blocking=False):
+                copies.append((lo, lo + len(src), src.clone(), non_blocking))
+                dst.copy_(src)
+        return _Rows()
+
+
+def _chunk_rows(width):
+    return max(1, STAGE_CHUNK_BYTES // width)
+
+
+@pytest.mark.parametrize("rows,width", [
+    (1, 400), ("one", 400), ("one+1", 400), (8192, 400), (8192, 2304)],
+    ids=["1-row", "one-chunk", "one-chunk+1", "fc1", "conv8"])
+def test_stage_rows_copies_every_row_once_in_order(rows, width):
+    step = _chunk_rows(width)
+    n = {"one": step, "one+1": step + 1}.get(rows, rows)
+    bits = np.random.default_rng(n).integers(0, 2, (n, width)).astype(bool)
+    host = torch.zeros((n, width), dtype=torch.bool)
+    dev = _EnqueuedCopies((n, width))
+    chunks = stage_rows(bits, host, dev)
+    assert chunks == len(dev.copies) == -(-n // step)
+    at = 0
+    for lo, hi, src, non_blocking in dev.copies:
+        assert lo == at and 0 < hi - lo <= step and non_blocking
+        np.testing.assert_array_equal(src.numpy(), bits[lo:hi])
+        at = hi
+    assert at == n
+    np.testing.assert_array_equal(host.numpy(), bits)
+    np.testing.assert_array_equal(dev.buf.numpy(), bits)
+
+
+def test_stage_rows_chunks_follow_the_slab_bytes():
+    """fc1's 3.3 MB slab takes one or two chunks, conv8's 18.9 MB more."""
+    assert -(-8192 // _chunk_rows(400)) <= 2
+    assert -(-8192 // _chunk_rows(2304)) >= 2
+
+
+def test_cpu_runner_notes_an_unstaged_transfer():
+    _, g = _graphs(14)
+    eng = LogicEngine(CompileSpec(n_unit=16), capacity=32, device="cpu")
+    x = _requests(15, g.n_inputs, [40])[0]
+    obs.clear()
+    with obs.recording():
+        np.testing.assert_array_equal(eng.serve(g, x), g.evaluate(x))
+    h2d = [s.attrs for s in obs.spans() if s.label == "runner.h2d"]
+    d2h = [s.attrs for s in obs.spans() if s.label == "runner.d2h"]
+    assert len(h2d) == len(d2h) == eng.stats()["invocations"] == 2
+    assert all(a == {"staged": False, "chunks": 0,
+                     "bytes": 32 * g.n_inputs} for a in h2d)
+    assert all(a == {"staged": False} for a in d2h)
 
 
 # ---------------------------------------------------------------------------
