@@ -30,9 +30,9 @@ Three layers, as in the reference package:
    partitioned or chained) in ONE launch of the CUDA mega kernel, and
    unpacks.  Across devices (the reference's ``shard_map`` over a 1-axis
    mesh) the slab's rows split into one contiguous block a device, the
-   layout of ``batch_pspec``'s ``P("data", None)``: each block packs its
-   own words and runs the whole artifact in one launch on its device's own
-   stream, and the blocks come back in order — one launch a shard a wave.
+   layout of ``batch_pspec``'s ``P("data", None)``: each block takes the
+   same path, through buffers of its own, on its device's own stream, and
+   the blocks come back in order — one launch a shard a wave.
 
 Requests are one-shot (combinational logic has no decode loop): a request
 completes in the first invocation wave it is admitted to.
@@ -44,7 +44,7 @@ import threading
 import time
 import warnings
 from collections import OrderedDict, deque
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 from typing import Callable
 
@@ -826,19 +826,23 @@ def stage_rows(bits: np.ndarray, host: torch.Tensor,
 
 
 class _Staging:
-    """One thread's reused transfer buffers for a runner on a CUDA device:
-    the slab in through a pinned host buffer and a device buffer, the
-    outputs back through a pinned host buffer.  Each is allocated at the
-    first wave and again only for a slab with more rows."""
+    """One thread's reused transfer buffers for one shard of a runner on a
+    CUDA device: the block in through a pinned host buffer and a device
+    buffer, the outputs back through a pinned host buffer.  Each is
+    allocated at the first wave and again only for a block with more
+    rows."""
+
+    staged = True
 
     def __init__(self, device: torch.device):
         self.device = device
         self.host_in = self.dev_in = self.host_out = None
         self.h2d_done = torch.cuda.Event()
+        self._out = self._stream = None
 
     def h2d(self, bits: np.ndarray) -> tuple[torch.Tensor, int]:
-        """The slab on the device, after its chunks' copies are enqueued on
-        the current stream; and the number of chunks."""
+        """The block on the device, after its chunks' copies are enqueued
+        on the current stream; and the number of chunks."""
         n = len(bits)
         if self.host_in is None or len(self.host_in) < n:
             self.host_in = torch.empty(bits.shape, dtype=torch.bool,
@@ -852,16 +856,104 @@ class _Staging:
         self.h2d_done.record(torch.cuda.current_stream(self.device))
         return self.dev_in[:n], chunks
 
-    def d2h(self, y: torch.Tensor) -> np.ndarray:
-        """``y`` copied into the pinned output buffer, once the stream has
-        run up to it: a view valid until this thread's next wave."""
+    def d2h(self, y: torch.Tensor) -> None:
+        """Enqueue ``y``'s copy into the pinned output buffer on the
+        current stream, without waiting."""
         if self.host_out is None or len(self.host_out) < len(y):
             self.host_out = torch.empty(y.shape, dtype=torch.bool,
                                         pin_memory=True)
-        out = self.host_out[:len(y)]
-        out.copy_(y, non_blocking=True)
-        torch.cuda.current_stream(self.device).synchronize()
-        return out.numpy()
+        self._out = self.host_out[:len(y)]
+        self._out.copy_(y, non_blocking=True)
+        self._stream = torch.cuda.current_stream(self.device)
+
+    def wait(self) -> np.ndarray:
+        """The outputs :meth:`d2h` enqueued, once their stream has run up
+        to them: a view valid until this thread's next wave."""
+        self._stream.synchronize()
+        return self._out.numpy()
+
+
+class _Pageable:
+    """The CPU's twin of :class:`_Staging`: the block and its outputs move
+    as they are."""
+
+    staged = False
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._out = None
+
+    def h2d(self, bits: np.ndarray) -> tuple[torch.Tensor, int]:
+        return torch.from_numpy(bits).to(self.device), 0
+
+    def d2h(self, y: torch.Tensor) -> None:
+        self._out = y.cpu()
+
+    def wait(self) -> np.ndarray:
+        return self._out.numpy()
+
+
+def _shard_scope(device: torch.device, stream):
+    """A shard's device and stream made current; nothing for a shard on
+    the caller's own stream (``stream`` None)."""
+    return nullcontext() if stream is None else device_scope(device, stream)
+
+
+class _Runner:
+    """A cache entry's wave on an engine's shards: a callable ``bits ->
+    outputs`` (:meth:`LogicEngine._build_runner` builds it).
+
+    ``shards`` lists ``(device, stream)``, a ``None`` stream being the
+    caller's current one; shard i takes the slab's rows ``[i * rows,
+    (i + 1) * rows)``, ``rows = len(bits) // len(shards)``."""
+
+    def __init__(self, mega, shards: list, use_ref: bool, plan_note: dict):
+        self.mega, self.shards = mega, shards
+        self.use_ref, self.plan_note = use_ref, plan_note
+        self._local = threading.local()
+
+    def transfers(self) -> list:
+        """The calling thread's transfer objects, one a shard, made at its
+        first wave.  Engines on one device share a cache entry's runner and
+        the cache serves threads, so each thread, and each shard, moves its
+        block through buffers of its own."""
+        mine = getattr(self._local, "transfers", None)
+        if mine is None:
+            mine = self._local.transfers = [
+                (_Staging if dev.type == "cuda" else _Pageable)(dev)
+                for dev, _ in self.shards]
+        return mine
+
+    def __call__(self, bits: np.ndarray) -> np.ndarray:
+        transfers = self.transfers()
+        rows = len(bits) // len(self.shards)
+        ys = []
+        with obs.span("runner"):
+            for i, ((dev, stream), io) in enumerate(zip(self.shards,
+                                                        transfers)):
+                if stream is not None:
+                    stream.wait_stream(current_stream(dev))
+                with _shard_scope(dev, stream):
+                    block = bits[i * rows:(i + 1) * rows]
+                    with obs.span("runner.h2d") as sp:
+                        x, chunks = io.h2d(block)
+                        sp.note(staged=io.staged, chunks=chunks,
+                                bytes=block.nbytes)
+                    with obs.span("runner.pack"):
+                        words = pack_bits(x)
+                    with obs.span("runner.kernel") as sp:
+                        sp.note(**self.plan_note)
+                        ow = mega_forward_words(self.mega, words,
+                                                use_ref=self.use_ref)
+                    with obs.span("runner.unpack"):
+                        ys.append(unpack_bits(ow, rows))
+            with obs.span("runner.d2h") as sp:
+                sp.note(staged=transfers[0].staged)
+                for (dev, stream), io, y in zip(self.shards, transfers, ys):
+                    with _shard_scope(dev, stream):
+                        io.d2h(y)
+                outs = [io.wait() for io in transfers]
+                return outs[0] if len(outs) == 1 else np.concatenate(outs)
 
 
 class LogicEngine:
@@ -1003,15 +1095,18 @@ class LogicEngine:
 
     # -- program / runner plumbing ------------------------------------------
 
-    def _entry(self, graph: LogicGraph) -> CompiledEntry:
-        entry = self.cache.get(graph, self.spec)
+    def _with_runner(self, entry: CompiledEntry) -> CompiledEntry:
+        """``entry`` with this engine's runner, built at its first use."""
         if self._exec_key not in entry.runners:
             entry.runners[self._exec_key] = self._build_runner(entry)
         return entry
 
+    def _entry(self, graph: LogicGraph) -> CompiledEntry:
+        return self._with_runner(self.cache.get(graph, self.spec))
+
     def _build_runner(self, entry: CompiledEntry) -> Callable:
-        """pack -> mega kernel -> unpack on the engine's device, ONE kernel
-        launch per wave.
+        """pack -> mega kernel -> unpack on the engine's shards, ONE kernel
+        launch a shard a wave.
 
         The whole artifact — monolithic, partitioned pipeline, or served
         chain — executes as a single mega-kernel launch: partition
@@ -1021,111 +1116,47 @@ class LogicEngine:
         (memoized by ``mega_arrays``); the only per-wave transfers are the
         ``(capacity, n_inputs)`` bool slab in and the outputs back.
 
-        Split (``shard``): the slab's rows in ``n_devices`` contiguous
-        blocks, block i on ``devices[i]``: each is moved there, packed, run
-        in one launch and unpacked on a stream of its own (after the
-        caller's stream on that device), its outputs copied back into
-        pinned host memory without waiting; then every shard's stream is
-        synchronized and the blocks are concatenated in order.  A shard
-        that fails raises.
+        Without the split there is one shard: the engine's device, on the
+        caller's current stream.  Split (``shard``): one shard an entry of
+        ``devices``, each on a stream of its own that first waits on the
+        caller's stream there; shard i takes the slab's i-th contiguous
+        block of rows.  A shard that fails raises.
 
-        On one CUDA device the slab is staged (:class:`_Staging`, one set
-        of buffers a calling thread, dropped with the runner): the host's
-        threads fill a reused pinned buffer a chunk of rows at a time
-        (:func:`stage_rows`), each chunk's copy to a reused device buffer
-        enqueued as soon as it is filled, and the outputs come back
-        through a reused pinned buffer.  The array returned is then a view
-        of that buffer, valid until the thread's next call.
+        Each shard moves its block through transfer objects of its own, one
+        set a calling thread (:meth:`_Runner.transfers`, dropped with the
+        runner).  On CUDA the block is staged (:class:`_Staging`): the
+        host's threads fill a reused pinned buffer a chunk of rows at a
+        time (:func:`stage_rows`), each chunk's copy to a reused device
+        buffer enqueued as soon as it is filled, and the outputs come back
+        through a reused pinned buffer.  With one shard the array returned
+        is a view of that buffer, valid until the thread's next call; with
+        several it is the shards' outputs concatenated in order.
 
-        The runner is the span ``runner`` (``repro_torch.obs``); on one
-        device its phases are ``runner.h2d`` (noting whether the slab was
-        ``staged``, its ``chunks`` and ``bytes``), ``runner.pack``,
-        ``runner.kernel`` (the launch's enqueue, noting the launch plan:
-        its ``scratch`` variant, ``steps``, ``n_addr`` rows and ``cols``
-        a block), ``runner.unpack`` and ``runner.d2h`` (the copy back and
-        the wait for the stream, noting ``staged``).
+        The runner is the span ``runner`` (``repro_torch.obs``).  Each shard
+        records ``runner.h2d`` (noting whether the block was ``staged``, its
+        ``chunks`` and ``bytes``), ``runner.pack``, ``runner.kernel`` (the
+        launch's enqueue, noting the launch plan: its ``scratch`` variant,
+        ``steps``, ``n_addr`` rows and ``cols`` a block) and
+        ``runner.unpack``; then one ``runner.d2h`` enqueues every shard's
+        copy back and waits for every shard's stream (noting ``staged``).
         """
         mega = entry.artifact.megaprogram()
         for dev in dict.fromkeys(self.devices):
             mega_arrays(mega, dev)
-        device, use_ref = self.device, self.use_ref
-        plan = mega_arrays(mega, device)["plan"]
-        plan_note = dict(scratch=plan.scratch, steps=mega.total_steps,
-                         n_addr=mega.n_addr, cols=plan.cols)
-
-        if not self.shard:
-            staged = device.type == "cuda"
-            # engines on one device share a cache entry's runner, and the
-            # cache serves threads: each thread stages through its own
-            # buffers
-            local = threading.local()
-
-            def run(bits: np.ndarray) -> np.ndarray:
-                if staged:
-                    stage = getattr(local, "stage", None)
-                    if stage is None:
-                        stage = local.stage = _Staging(device)
-                with obs.span("runner"):
-                    with obs.span("runner.h2d") as sp:
-                        if staged:
-                            x, chunks = stage.h2d(bits)
-                        else:
-                            x, chunks = torch.from_numpy(bits).to(device), 0
-                        sp.note(staged=staged, chunks=chunks,
-                                bytes=bits.nbytes)
-                    with obs.span("runner.pack"):
-                        words = pack_bits(x)
-                    with obs.span("runner.kernel") as sp:
-                        sp.note(**plan_note)
-                        ow = mega_forward_words(mega, words, use_ref=use_ref)
-                    with obs.span("runner.unpack"):
-                        y = unpack_bits(ow, bits.shape[0])
-                    with obs.span("runner.d2h") as sp:
-                        sp.note(staged=staged)
-                        return stage.d2h(y) if staged else y.cpu().numpy()
-
-            run.local = local       # ``run.local.stage``: a thread's buffers
-            return run
-
-        devices = self.devices
-        rows = self.capacity // len(devices)
-        streams = [torch.cuda.Stream(device=d) if d.type == "cuda" else None
-                   for d in devices]
-
-        def run_split(bits: np.ndarray) -> np.ndarray:
-            outs = []
-            for i, (dev, stream) in enumerate(zip(devices, streams)):
-                if stream is not None:
-                    stream.wait_stream(current_stream(dev))
-                with device_scope(dev, stream):
-                    x = torch.from_numpy(bits[i * rows:(i + 1) * rows]).to(dev)
-                    ow = mega_forward_words(mega, pack_bits(x),
-                                            use_ref=use_ref)
-                    y = unpack_bits(ow, rows)
-                    if stream is None:
-                        outs.append(y)
-                        continue
-                    host = torch.empty(y.shape, dtype=torch.bool,
-                                       pin_memory=True)
-                    outs.append(host.copy_(y, non_blocking=True))
-            for stream in streams:
-                if stream is not None:
-                    stream.synchronize()
-            return torch.cat(outs).numpy()
-
-        def run_sharded(bits: np.ndarray) -> np.ndarray:
-            with obs.span("runner"):
-                return run_split(bits)
-
-        return run_sharded
+        plan = mega_arrays(mega, self.device)["plan"]
+        if self.shard:
+            shards = [(d, torch.cuda.Stream(device=d)
+                       if d.type == "cuda" else None) for d in self.devices]
+        else:
+            shards = [(self.device, None)]
+        return _Runner(mega, shards, self.use_ref,
+                       dict(scratch=plan.scratch, steps=mega.total_steps,
+                            n_addr=mega.n_addr, cols=plan.cols))
 
     # -- request lifecycle ---------------------------------------------------
 
     def _chain_entry(self, graphs: tuple) -> CompiledEntry:
-        entry = self.cache.get_chain(graphs, self.spec)
-        if self._exec_key not in entry.runners:
-            entry.runners[self._exec_key] = self._build_runner(entry)
-        return entry
+        return self._with_runner(self.cache.get_chain(graphs, self.spec))
 
     def submit(self, graph: LogicGraph, bits: np.ndarray) -> int:
         """Queue a request; returns its uid (serve with :meth:`step`)."""
@@ -1266,8 +1297,8 @@ class LogicEngine:
             req = queue[0].req
             entry = self._chain_entry(req.chain) if req.chain is not None \
                 else self._entry(req.graph)
-        elif self._exec_key not in entry.runners:
-            entry.runners[self._exec_key] = self._build_runner(entry)
+        else:
+            self._with_runner(entry)
         with obs.span("engine.step") as wave:
             admitted: list[tuple[_Chunk, list]] = []
             with obs.span("engine.admit"):

@@ -482,13 +482,13 @@ def test_engine_serves_the_device_variant_on_card(cuda):
     assert notes[0]["n_addr"] > 60_000
 
 
-def _staged_waves(cuda, g, spec, waves=4):
+def _staged_waves(devices, g, spec, waves=4):
     """Back-to-back waves of different slabs through the engine's runner
-    for ``g`` at capacity 8,192: each wave's output against
-    ``mega_infer_bits``, before the next wave reuses the buffers; the
-    runner's buffers after each wave; its ``runner.h2d`` notes."""
+    for ``g`` at capacity 8,192 on ``devices``: each wave's output against
+    ``mega_infer_bits``, before the next wave reuses the buffers; every
+    shard's buffers after each wave; the ``runner.h2d`` notes."""
     from repro_torch import obs
-    eng = LogicEngine(spec, capacity=8192, device=cuda)
+    eng = LogicEngine(spec, capacity=8192, devices=devices)
     entry = eng._entry(g)
     run, mega = entry.runners[eng._exec_key], entry.artifact.megaprogram()
     bufs = []
@@ -498,39 +498,46 @@ def _staged_waves(cuda, g, spec, waves=4):
             x = _bits(100 + w, 8192, g.n_inputs)
             got = run(x)
             np.testing.assert_array_equal(
-                got, ops.mega_infer_bits(mega, x, device=cuda))
+                got, ops.mega_infer_bits(mega, x, device=devices[0]))
             np.testing.assert_array_equal(got, execute_megaprogram_np(mega, x))
-            stage = run.local.stage
-            bufs.append([(b.is_pinned(), b.data_ptr()) for b in
-                         (stage.host_in, stage.host_out)]
-                        + [(b.is_cuda, b.data_ptr()) for b in (stage.dev_in,)])
+            bufs.append([(b.is_pinned(), b.data_ptr())
+                         for io in run.transfers()
+                         for b in (io.host_in, io.host_out)]
+                        + [(io.dev_in.is_cuda, io.dev_in.data_ptr())
+                           for io in run.transfers()])
     notes = [s.attrs for s in obs.spans() if s.label == "runner.h2d"]
     return entry, bufs, notes
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["fc1_widths", "device_variant"])
+@pytest.mark.parametrize("case", ["fc1_widths", "device_variant", "split2"])
 def test_staged_runner_matches_mega_infer_bits_on_card(cuda, case):
     """The staged runner, wave after wave with different slabs, equals
     ``mega_infer_bits`` bit for bit; its pinned and device buffers are
     allocated at the first wave and kept; ``runner.h2d`` notes the chunks
-    (a conv8-sized slab, 8,192 x 2,304 bits, takes several)."""
-    if case == "fc1_widths":
-        g = random_graph(np.random.default_rng(6), 400, 3_000, 120,
-                         unary_frac=0.2, locality=256)
-        spec = CompileSpec(n_unit=256, optimize="none")
-    else:
+    (a conv8-sized slab, 8,192 x 2,304 bits, takes several).  Split over
+    two shards on one card, each shard stages its block through buffers
+    of its own."""
+    if case == "device_variant":
         g = random_graph(np.random.default_rng(7), 2304, 66_000, 32,
                          unary_frac=0.2, locality=256)
         spec = CompileSpec(n_unit=256, alloc="direct", optimize="none")
-    entry, bufs, notes = _staged_waves(cuda, g, spec)
+    else:
+        g = random_graph(np.random.default_rng(6), 400, 3_000, 120,
+                         unary_frac=0.2, locality=256)
+        spec = CompileSpec(n_unit=256, optimize="none")
+    devices = [cuda, cuda] if case == "split2" else [cuda]
+    entry, bufs, notes = _staged_waves(devices, g, spec)
     plan = ops.mega_arrays(entry.artifact.megaprogram(), cuda)["plan"]
-    assert plan.scratch == ("shared" if case == "fc1_widths" else "device")
+    assert plan.scratch == ("device" if case == "device_variant"
+                            else "shared")
     assert all(p for b in bufs for p, _ in b)
     assert all(b == bufs[0] for b in bufs[1:])
-    nbytes = 8192 * g.n_inputs
-    want = -(-8192 // max(1, STAGE_CHUNK_BYTES // g.n_inputs))
-    assert notes == [dict(staged=True, chunks=want, bytes=nbytes)] * 4
+    assert len({ptr for _, ptr in bufs[0]}) == 3 * len(devices)
+    rows = 8192 // len(devices)
+    want = -(-rows // max(1, STAGE_CHUNK_BYTES // g.n_inputs))
+    assert notes == [dict(staged=True, chunks=want,
+                          bytes=rows * g.n_inputs)] * (4 * len(devices))
     if case == "device_variant":
         assert want >= 2
 
@@ -552,12 +559,13 @@ def test_staged_runner_gives_each_thread_its_buffers_on_card(cuda):
         for w in range(4):
             x = _bits(seed + w, 8192, g.n_inputs)
             out.append((x, np.array(run(x))))
-        return out, run.local.stage
+        return out, run.transfers()
 
     with ThreadPoolExecutor(2) as ex:
         done = [f.result(timeout=300)
                 for f in [ex.submit(waves, s) for s in (200, 300)]]
-    assert done[0][1] is not done[1][1]
+    (io_a,), (io_b,) = done[0][1], done[1][1]
+    assert io_a is not io_b and io_a.host_in is not io_b.host_in
     for out, _ in done:
         for x, got in out:
             np.testing.assert_array_equal(

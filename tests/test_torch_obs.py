@@ -123,15 +123,24 @@ def test_the_direct_path_records_every_step_span_once_a_wave():
     assert all(s.attrs == {"direct": True, "runs": 1} for s in slabs)
 
 
-def test_split_path_keeps_only_its_runner_span():
+@pytest.mark.parametrize("devices", [1, 4])
+def test_split_path_keeps_only_its_runner_span(devices):
+    """The split path records the runner's phases: h2d, pack, kernel and
+    unpack once a shard, in shard order, then one d2h for all of them."""
     eng = LogicEngine(CompileSpec(n_unit=16), capacity=64, shard=True,
-                      device="cpu")
+                      devices=["cpu"] * devices)
+    rows = eng.capacity // devices
     with obs.recording():
-        _serve(eng, [40, 30])
+        _serve(eng, [eng.capacity - 10, 30])
     kids = _children(obs.spans())
     runners = [s for s in obs.spans() if s.label == "runner"]
     assert len(runners) == eng.invocations == 2
-    assert all(r.index not in kids for r in runners)
+    for r in runners:
+        assert [c.label for c in kids[r.index]] == \
+            RUNNER[:-1] * devices + ["runner.d2h"]
+        h2d = [c.attrs for c in kids[r.index] if c.label == "runner.h2d"]
+        assert h2d == [dict(staged=False, chunks=0,
+                            bytes=rows * _graph(1).n_inputs)] * devices
     steps = [s for s in obs.spans() if s.label == "engine.step"]
     assert all([c.label for c in kids[s.index]] == STEP for s in steps)
 
