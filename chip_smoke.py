@@ -28,7 +28,9 @@ wave.
 Then the XNOR-popcount GEMM (K3): bit-exact against its plain version on
 ragged shapes, driven through ``xnor_gemm`` at the two full-width shapes of
 the paper's XNOR baseline (VGG16 conv6 and LeNet-5 fc1), exact against
-``torch._int_mm`` on the +-1 int8 operands, and timed beside it.  Last the
+``torch._int_mm`` on the +-1 int8 operands, and timed beside it.  Then the
+pack and unpack kernels (``csrc/bitpack.cu``): bit for bit against their
+plain versions and timed beside them at the main path's shapes.  Last the
 NullaNet flow: ``run_flow`` trains a binarized MLP at LeNet-5's FC widths
 (400 -> 120 -> 84 -> 10) on the card, converts both hidden layers to logic
 and runs them through all four backends (plain, K1 per layer, K2 for the
@@ -116,7 +118,7 @@ CPU, mixtral's also on a one-rank (1, 1) mesh.
 
 Output, one JSON object per line: ``env``, ``build``, ``parity``,
 ``main_path``, ``timing``, ``engine``, ``sharded_serving``, ``xnor``,
-``flow``, ``calibrate``, ``frontdoor``, ``warm_start``, ``quickstart``,
+``bitpack``, ``flow``, ``calibrate``, ``frontdoor``, ``warm_start``, ``quickstart``,
 ``logic_ffn``, ``lm``, ``train_full``, ``dryrun``, ``train_parity``,
 ``sharded_train``, ``split_parity``, ``logic_swap_train``, ``families`` and
 ``train_families`` (one line per model and a last one with the phase's
@@ -125,7 +127,8 @@ card's name and power limit as nvidia-smi prints them; then a ``kernels``
 line (per kernel: its launches on the main paths, its largest difference
 from the plain version, its device time per call, the plain version's
 time, the card's bound and the library call's device time; K1/K2's
-scratch variant and time per step, K3's tensor-core instruction); and last
+scratch variant and time per step, K3's tensor-core instruction; the
+pack and unpack kernels' times at each main-path shape); and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero
 before the last line.  Without CUDA, or outside a checkout, it exits
 non-zero and prints no result.
@@ -163,6 +166,20 @@ K2_REPLACES = "src/repro/kernels/logic_dsp/kernel.py:204"
 K3_REPLACES = "src/repro/kernels/xnor_gemm/kernel.py:44"
 KERNEL_SOURCE = "src/repro_torch/csrc/logic_dsp.cu"
 K3_SOURCE = "src/repro_torch/csrc/xnor_gemm.cu"
+BITPACK_SOURCE = "src/repro_torch/csrc/bitpack.cu"
+# the pack and unpack kernels replace no Pallas kernel: the reference packs
+# with plain jnp, and the port's eager twins are ref.pack_bits_ref /
+# ref.unpack_bits_ref
+BITPACK_REPLACES = ("none (src/repro/kernels/logic_dsp/ops.py "
+                    "pack_bits_jnp / unpack_bits_jnp are plain jnp)")
+# the main path's shapes: a wave of fc1 and the stack (8,192 x 400) and of
+# conv8 (8,192 x 2,304) packed; 120 (fc1), 84 (the stack) and 512 (conv8)
+# output rows of 256 words unpacked
+BITPACK_PACK = {"fc1": (8192, 400), "conv8": (8192, 2304)}
+BITPACK_UNPACK = {"fc1": (120, 256), "stack": (84, 256), "conv8": (512, 256)}
+BITPACK_CALLS = 50
+# inputs cycled in a timing read at least this many bytes, past the 50 MB L2
+BITPACK_COLD_BYTES = 128 * 2**20
 BATCHES = (1, 31, 32, 33, 70, 8192)
 # a program too large for a block's shared memory (rows past 2**16): the
 # device-memory scratch variant
@@ -623,7 +640,7 @@ def run(args, torch) -> None:
     K.reset_launch_counts()                     # main path starts here
     served = {}
     for name, eng in engines.items():
-        before = K.launch_count("mega")
+        before = launch_counts(K)
         t1 = time.perf_counter()
         uids = [eng.submit(graph, requests[0])]    # optimizes and compiles
         first_submit_s = time.perf_counter() - t1
@@ -631,7 +648,8 @@ def run(args, torch) -> None:
         eng.drain()
         torch.cuda.synchronize()
         served[name] = ([eng.result(u) for u in uids],
-                        K.launch_count("mega") - before,
+                        {k: n - before[k]
+                         for k, n in launch_counts(K).items()},
                         eng.stats()["invocations"], first_submit_s)
     arts = {name: artifact_of(eng) for name, eng in engines.items()}
     artifact = arts["monolithic"]
@@ -639,11 +657,14 @@ def run(args, torch) -> None:
     x_k1 = rand_bits(CAPACITY, FANIN)
     k1_out = ops.logic_infer_bits(prog, x_k1, device=dev)
     torch.cuda.synchronize()
-    launches = {"logic": K.launch_count("logic"),
-                "mega": K.launch_count("mega")}   # main path ends here
+    launches = launch_counts(K)                 # main path ends here
     by_variant = variant_counts(K)
 
     check(launches["logic"] == 1, "logic_infer_bits made one K1 launch")
+    waves = sum(w for _, _, w, _ in served.values())
+    check(launches["pack"] == launches["unpack"] == waves + 1,
+          f"one pack and one unpack launch a wave and one for "
+          f"logic_infer_bits: {launches}, {waves} waves")
     for name, eng in engines.items():
         plan = ops.mega_arrays(artifact_of(eng).megaprogram(), dev)["plan"]
         check(plan.scratch == "shared",
@@ -662,10 +683,14 @@ def run(args, torch) -> None:
             "requests": list(sizes), "launches": launches,
             "launches_by_variant": by_variant}
     for name, eng in engines.items():
-        outs, k2_launches, waves, first_submit_s = served[name]
+        outs, counts, waves, first_submit_s = served[name]
+        k2_launches = counts["mega"]
         art = arts[name]
         check(k2_launches == waves and waves > 0,
               f"{name}: one K2 launch per wave ({k2_launches} vs {waves})")
+        check(counts["pack"] == counts["unpack"] == waves,
+              f"{name}: one pack and one unpack launch a wave ({counts} vs "
+              f"{waves})")
         plain_outs = [plain_engines[name].serve(graph, x) for x in requests]
         for x, out, plain in zip(requests, outs, plain_outs):
             check(out.shape == (len(x), NEURONS), f"{name}: output shape")
@@ -680,7 +705,9 @@ def run(args, torch) -> None:
                       "gates": [p.n_gates for p in art.programs],
                       "compile_s": art.compile_s,
                       "first_submit_s": first_submit_s, "waves": waves,
-                      "k2_launches": k2_launches}
+                      "k2_launches": k2_launches,
+                      "pack_launches": counts["pack"],
+                      "unpack_launches": counts["unpack"]}
     check(main["parallel4"]["programs"] > 1,
           "the max_gates budget gives a multi-program pipeline")
     emit(main)
@@ -847,6 +874,7 @@ def run(args, torch) -> None:
                                     rand_bits)
 
     xnor = xnor_phase(args, torch, dev, cuda_ms, smi)
+    bitpack = bitpack_phase(args, torch, dev, cuda_ms, smi)
     flow = flow_phase(torch, dev)
     calib = calibrate_phase(torch, dev, smi, artifact, x_k1, k1_out,
                             k1_oracle)
@@ -883,8 +911,10 @@ def run(args, torch) -> None:
              "logic_ffn": lffn["launches"],
              "logic_swap_train": lswap["launches"],
              "sharded_serving": sharded["launches"]}
-    check(xnor["launches"]["xnor"] == len(XNOR_SHAPES),
-          "xnor_gemm made one K3 launch per full-width call")
+    check(xnor["launches"]["xnor"] == len(XNOR_SHAPES) and
+          xnor["launches"]["pack"] == 2 * len(XNOR_SHAPES),
+          "xnor_gemm made one K3 launch and packed both operands per "
+          f"full-width call: {xnor['launches']}")
 
     def path_launches(kind):
         return {k: v[kind] for k, v in paths.items() if v.get(kind)}
@@ -932,6 +962,19 @@ def run(args, torch) -> None:
          "library_event_ms": vgg["library_ms"],
          "lenet5_fc1": {k: xnor["timing"]["lenet5_fc1"][k] for k in (
              "device_ms", "bound_ms", "library_device_ms")}},
+        *({"name": f"{kind}_kernel", "route": "cuda",
+           "source": BITPACK_SOURCE, "replaces": BITPACK_REPLACES,
+           "launches": sum(path_launches(kind).values()),
+           "launches_by_path": path_launches(kind),
+           "max_abs_err": bitpack["max_abs_err"][kind], "at": "conv8",
+           **{k: bitpack["timing"][f"{kind}/conv8"][k] for k in (
+               "ms", "event_ms", "plain_ms", "bound_ms", "bound_by")},
+           "library_ms": None,
+           "shapes": {k.split("/")[1]: {f: v[f] for f in (
+               "shape", "ms", "plain_ms", "bound_ms")}
+               for k, v in bitpack["timing"].items()
+               if k.startswith(kind + "/")}}
+          for kind in ("pack", "unpack")),
     ]
     print(smi, flush=True)
     emit({"kernels": kernels})
@@ -983,15 +1026,18 @@ def sharded_serving_phase(torch, dev, smi, graph, engines,
     K.reset_launch_counts()                 # sharded path starts here
     per = {}
     for (name, label), eng in runs.items():
-        before = K.launch_count("mega")
+        before = launch_counts(K)
         uids = [eng.submit(graph, x) for x in inputs]
         eng.drain()
         torch.cuda.synchronize()
         outs = [eng.result(u) for u in uids]
         st = eng.stats()
+        after = launch_counts(K)
         per[f"{name}/{label}"] = {
             "shards": shards[label], "waves": st["invocations"],
-            "k2_launches": K.launch_count("mega") - before,
+            "k2_launches": after["mega"] - before["mega"],
+            "pack_launches": after["pack"] - before["pack"],
+            "unpack_launches": after["unpack"] - before["unpack"],
             "n_devices": st["n_devices"], "sharded": st["sharded"],
             "capacity": st["capacity"],
             "exact_vs_oracle": all(bool((o == w).all()) for o, w in
@@ -1007,7 +1053,7 @@ def sharded_serving_phase(torch, dev, smi, graph, engines,
                                                      "sharded")},
                "exact_vs_oracle": bool((got_odd == arts["monolithic"]
                                         .execute(x_odd)).all())}
-    launches = {k: K.launch_count(k) for k in ("logic", "mega", "xnor")}
+    launches = launch_counts(K)
     by_variant = variant_counts(K)          # sharded path ends here
 
     timed = {}
@@ -1041,6 +1087,10 @@ def sharded_serving_phase(torch, dev, smi, graph, engines,
         check(r["waves"] > 0 and r["k2_launches"] == r["shards"] *
               r["waves"], f"sharded_serving {key}: one K2 launch a shard a "
               f"wave ({r['k2_launches']} vs {r['shards']} x {r['waves']})")
+        check(r["pack_launches"] == r["unpack_launches"] == r["shards"] *
+              r["waves"], f"sharded_serving {key}: one pack and one unpack "
+              f"launch a shard a wave ({r['pack_launches']}, "
+              f"{r['unpack_launches']} vs {r['shards']} x {r['waves']})")
         check(r["n_devices"] == r["shards"] and r["sharded"],
               f"sharded_serving {key}: stats report the split: {r}")
     check(odd_out["capacity"] == CAPACITY and odd_out["exact_vs_oracle"]
@@ -1048,6 +1098,9 @@ def sharded_serving_phase(torch, dev, smi, graph, engines,
           odd_out["stats"] == {"n_devices": 2, "sharded": True},
           f"sharded_serving: capacity {CAPACITY - 2} rounds up to the "
           f"64-row quantum and serves exactly: {odd_out}")
+    check(launches["pack"] == launches["unpack"] == launches["mega"],
+          f"sharded_serving: one pack and one unpack a K2 launch: "
+          f"{launches}")
     check(launches["mega"] == sum(r["k2_launches"] for r in per.values())
           + odd_out["k2_launches"] and launches["logic"] == 0 and
           by_variant["mega/shared"] == launches["mega"],
@@ -1096,7 +1149,8 @@ def xnor_phase(args, torch, dev, cuda_ms, smi) -> dict:
     K3.reset_launch_counts()                    # main path starts here
     outs = {name: xnor_gemm(a, b, device=dev) for name, (a, b) in full.items()}
     torch.cuda.synchronize()
-    launches = {"xnor": K3.launch_count("xnor")}  # main path ends here
+    launches = {k: K3.launch_count(k)           # main path ends here
+                for k in ("xnor", "pack")}
 
     timing = {}
     for name, (m, n, k) in XNOR_SHAPES.items():
@@ -1142,6 +1196,86 @@ def xnor_phase(args, torch, dev, cuda_ms, smi) -> dict:
     return out
 
 
+def bitpack_phase(args, torch, dev, cuda_ms, smi) -> dict:
+    """The pack and unpack kernels (``csrc/bitpack.cu``) at the main
+    path's shapes: bit for bit against their plain versions on the card
+    (random bits with each word group's row 31 all ones, so bit 31 is set;
+    the unpack of the packed words and of random ones), then each kernel
+    and its plain twin timed.  ``ms`` and ``plain_ms`` are device time a
+    call (profiler), ``event_ms`` and ``plain_event_ms`` the events around
+    calls back to back, which the host's launch cost can bound; the inputs
+    are cycled so that a timing reads ``BITPACK_COLD_BYTES``, past the L2.
+    The bound is the bytes read and written once at 3.35 TB/s."""
+    import itertools
+
+    from repro_torch.kernels.logic_dsp import kernel as K
+    from repro_torch.kernels.logic_dsp.ref import (pack_bits_ref,
+                                                   unpack_bits_ref)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 34)
+    max_err = {"pack": 0, "unpack": 0}
+    timing = {}
+
+    def slab(batch, n):
+        x = torch.rand((batch, n), generator=gen, device=dev) < 0.5
+        x[31::32] = True
+        return x
+
+    def rand_words(n, w):
+        return torch.randint(-2 ** 31, 2 ** 31, (n, w), generator=gen,
+                             device=dev, dtype=torch.int64).to(torch.int32)
+
+    def timed(name, kernel, plain, inputs, nbytes, shape):
+        it = itertools.cycle(inputs)
+        plain_it = itertools.cycle(inputs)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        timing[name] = {
+            "shape": shape, "bytes": nbytes, "copies": len(inputs),
+            "ms": device_ms_per_call(torch, lambda: kernel(*next(it)),
+                                     BITPACK_CALLS),
+            "event_ms": cuda_ms(lambda: kernel(*next(it)), args.reps),
+            "plain_ms": device_ms_per_call(
+                torch, lambda: plain(*next(plain_it)), 10),
+            "plain_event_ms": cuda_ms(lambda: plain(*next(plain_it)), 10,
+                                      warmup=1),
+            "bound_ms": t_bytes, "bound_by": "bytes"}
+
+    def copies(nbytes):
+        return max(1, -(-BITPACK_COLD_BYTES // nbytes))
+
+    for name, (batch, n) in BITPACK_PACK.items():
+        w = -(-batch // 32)
+        nbytes = batch * n + n * w * 4
+        xs = [slab(batch, n) for _ in range(copies(nbytes))]
+        for x in xs[:2]:
+            words = K.pack_cuda_call(x)
+            max_err["pack"] = max(max_err["pack"],
+                                  word_err(words, pack_bits_ref(x)))
+            max_err["unpack"] = max(max_err["unpack"], word_err(
+                K.unpack_cuda_call(words, batch), x))
+        timed(f"pack/{name}", K.pack_cuda_call, pack_bits_ref,
+              [(x,) for x in xs], nbytes, [batch, n])
+    for name, (n, w) in BITPACK_UNPACK.items():
+        batch = 32 * w
+        nbytes = n * w * 4 + batch * n
+        ws = [rand_words(n, w) for _ in range(copies(nbytes))]
+        for words in (pack_bits_ref(slab(batch, n)), ws[0]):
+            for rows in (batch, batch - 5):
+                max_err["unpack"] = max(max_err["unpack"], word_err(
+                    K.unpack_cuda_call(words, rows),
+                    unpack_bits_ref(words, rows)))
+        timed(f"unpack/{name}", K.unpack_cuda_call, unpack_bits_ref,
+              [(words, batch) for words in ws], nbytes, [n, w])
+    torch.cuda.synchronize()
+    out = {"phase": "bitpack", "max_abs_err": max_err,
+           "nvidia_smi": smi, "timing": timing}
+    emit(out)
+    check(max_err == {"pack": 0, "unpack": 0}, "the pack and unpack kernels "
+          f"equal their plain versions bit for bit: {max_err}")
+    return out
+
+
 def flow_phase(torch, dev) -> dict:
     """The NullaNet flow on the card: ``run_flow`` at LeNet-5's FC widths
     (ISF conversion, all four backends, an engine of one full wave), then
@@ -1163,7 +1297,7 @@ def flow_phase(torch, dev) -> dict:
     K.reset_launch_counts()                     # flow path starts here
     report, _ = run_flow(cfg, device=dev, engine=engine)
     torch.cuda.synchronize()
-    launches = {k: K.launch_count(k) for k in ("logic", "mega", "xnor")}
+    launches = launch_counts(K)
     wall_s = time.perf_counter() - t0           # flow path ends here
     by_variant = variant_counts(K)
     waves = engine.stats()["invocations"]
@@ -1180,8 +1314,7 @@ def flow_phase(torch, dev) -> dict:
     out["default"] = {
         "model": "FlowConfig() (12 -> 10 -> 8 -> 4, enumerated)",
         **summary(default),
-        "launches": {k: K.launch_count(k) for k in ("logic", "mega",
-                                                     "xnor")},
+        "launches": launch_counts(K),
         "launches_by_variant": variant_counts(K)}
     emit(out)
     for v in (by_variant, out["default"]["launches_by_variant"]):
@@ -1245,7 +1378,7 @@ def calibrate_phase(torch, dev, smi, artifact, x, fused, oracle) -> dict:
     with calibrate.PhaseTimer() as timer:
         timed = ops.logic_infer_bits(prog, x, device=dev)
     torch.cuda.synchronize()
-    launches = {k: K.launch_count(k) for k in ("logic", "mega", "xnor")}
+    launches = launch_counts(K)
     # calibrate path ends here
     cal = calibrate.fit_calibration(probes, meta={
         "grid": "quick", "device": torch.cuda.get_device_name(0),
@@ -1868,7 +2001,7 @@ def frontdoor_phase(args, torch, dev, smi, tenants, fc2_synth_s) -> dict:
                                      dir=scratch_dir()) as d:
         r = asyncio.run(go(d))
     torch.cuda.synchronize()
-    launches = {k: K.launch_count(k) for k in ("logic", "mega", "xnor")}
+    launches = launch_counts(K)
     # front-door path ends here
     wall_s = time.perf_counter() - t0
     raws = [r.pop(k) for k in ("light_raw", "overload_raw", "two_x_raw")]
@@ -1961,7 +2094,7 @@ for name in names.split(","):
 st = engine.cache.stats()
 out.update(device=str(engine.device), compiles=st["compiles"],
            store_hits=st["store_hits"], waves=engine.invocations,
-           launches={k: K.launch_count(k) for k in ("logic", "mega", "xnor")})
+           launches={k: K.launch_count(k) for k in K.KERNELS})
 print(json.dumps(out))
 """
 
@@ -2073,7 +2206,7 @@ def quickstart_phase(torch, dev, smi) -> dict:
     K.reset_launch_counts()                     # quickstart path starts here
     r = quickstart.run(device=dev)
     torch.cuda.synchronize()
-    launches = {k: K.launch_count(k) for k in ("logic", "mega", "xnor")}
+    launches = launch_counts(K)
     wall_s = time.perf_counter() - t0           # quickstart path ends here
     prog, x, graph, b = r["program"], r["x"], r["graph"], r["cost"]
     words = ops.pack_bits(torch.from_numpy(x).to(dev))
@@ -2170,7 +2303,7 @@ def logic_ffn_phase(args, torch, dev, smi, cuda_ms) -> dict:
         held_inputs = []
         logic_held = model(held, ffn_inputs=held_inputs)
     torch.cuda.synchronize()
-    launches = {k: K.launch_count(k) for k in ("logic", "mega", "xnor")}
+    launches = launch_counts(K)
     wall_s = time.perf_counter() - t0           # logic-FFN path ends here
 
     err, hidden_equal = 0, True
@@ -2377,7 +2510,7 @@ def families_phase(args, torch, dev, smi) -> None:
     K.reset_launch_counts()                     # families path starts here
     for arch, plan in FAMILIES.items():
         family_case(args, torch, dev, smi, arch, plan)
-    launches = {k: K.launch_count(k) for k in ("logic", "mega", "xnor")}
+    launches = launch_counts(K)
     emit({"phase": "families", "models": list(FAMILIES),
           "launches": launches, "nvidia_smi": smi})
 
@@ -3519,7 +3652,7 @@ def train_families_phase(args, torch, dev, smi) -> None:
     t0 = time.perf_counter()
     for arch, plan in TRAIN_FAMILIES.items():
         train_family_case(args, torch, dev, smi, arch, plan)
-    launches = {k: K.launch_count(k) for k in ("logic", "mega", "xnor")}
+    launches = launch_counts(K)
     emit({"phase": "train_families", "models": list(TRAIN_FAMILIES),
           "launches": launches, "seconds": time.perf_counter() - t0,
           "nvidia_smi": smi})
@@ -4200,7 +4333,7 @@ def logic_swap_train_phase(args, torch, dev, smi, cuda_ms) -> dict:
     held_inputs = []
     swap.forward_with(model, held_tokens, programs, ffn_inputs=held_inputs)
     torch.cuda.synchronize()
-    launches = {k: K.launch_count(k) for k in ("logic", "mega", "xnor")}
+    launches = launch_counts(K)
     wall_s = time.perf_counter() - t0        # trained logic path ends here
 
     d = cfg.d_model
@@ -4353,6 +4486,12 @@ def device_ms_per_call(torch, fn, calls: int) -> float | None:
     fn()
     _, busy_us, _, _ = traced(torch, lambda: [fn() for _ in range(calls)])
     return None if busy_us is None else busy_us / 1e3 / calls
+
+
+def launch_counts(K) -> dict:
+    """Every counted kernel's launches (K1, K2, K3, pack, unpack) since
+    the last reset, as ``{"logic": n, ...}``."""
+    return {k: K.launch_count(k) for k in K.KERNELS}
 
 
 def variant_counts(K) -> dict:

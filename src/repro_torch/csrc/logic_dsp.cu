@@ -392,7 +392,8 @@ int logic_dsp_mega(const void* recs, int total_steps, const int* stage_table,
 }
 
 // The CUDA error text behind a return code of this library's launchers
-// (this one and xnor_gemm_launch), for the Python wrappers' exceptions.
+// (this one, xnor_gemm_launch, bitpack_pack and bitpack_unpack), for the
+// Python wrappers' exceptions.
 const char* repro_torch_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -16,6 +16,12 @@ once per program, 8 bytes for the shared variant, 16 for the device one).
 Launches are counted per kernel (``"logic"`` = K1, ``"mega"`` = K2) and per
 variant: ``launch_count("mega", "shared")``.
 
+Beside it, ``csrc/bitpack.cu`` lays a wave out for it and back:
+:func:`pack_cuda_call` packs a ``(batch, n)`` bool slab into ``(n, W)``
+int32 words and :func:`unpack_cuda_call` unpacks them (counted as
+``"pack"`` and ``"unpack"``); their plain versions are ``ref.pack_bits_ref``
+and ``ref.unpack_bits_ref``.
+
 The wrappers take CUDA tensors only, allocate the output and the scratch
 with ``torch.empty``, launch on the current stream without synchronising,
 raise on a launch error, and count their launches.  The scratch is freed
@@ -30,13 +36,16 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.kernels.native import (build, build_dir, build_info,
-                                        count_launch, launch_count, library,
-                                        raise_on, reset_launch_counts)
+from repro_torch.core.packing import WORD_BITS
+from repro_torch.kernels.native import (KERNELS, build, build_dir,
+                                        build_info, count_launch,
+                                        launch_count, library, raise_on,
+                                        reset_launch_counts)
 
-__all__ = ["LaunchPlan", "build", "build_dir", "build_info", "launch_count",
-           "library", "logic_cuda_call", "mega_cuda_call", "plan_launch",
-           "reset_launch_counts"]
+__all__ = ["KERNELS", "LaunchPlan", "build", "build_dir", "build_info",
+           "launch_count", "library", "logic_cuda_call", "mega_cuda_call",
+           "pack_cuda_call", "plan_launch", "reset_launch_counts",
+           "unpack_cuda_call"]
 
 #: Word columns a block owns, at most (1 where 2 do not fit).  A block's
 #: steps are latency-bound, so its time hardly grows with its columns,
@@ -121,13 +130,14 @@ def _ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None or t.numel() == 0 else t.data_ptr()
 
 
-def _check(device: torch.device, **tensors: torch.Tensor) -> None:
+def _check(device: torch.device, dtype: torch.dtype = torch.int32,
+           **tensors: torch.Tensor) -> None:
     for name, t in tensors.items():
         if t.device != device or t.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor on {device}, got "
                              f"{t.device} (the kernel takes no CPU tensor)")
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name} must be int32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
@@ -228,3 +238,58 @@ def mega_cuda_call(rec, input_words, stage_table, out_addrs, out_rows, *,
     return _launch("mega", rec, input_words, stage_table, out_addrs,
                    out_rows, plan=plan, n_addr=n_addr, n_outputs=n_outputs,
                    chain=chain, handoff_rows=handoff_rows)
+
+
+def _on_current_stream(device: torch.device, launcher, *args) -> int:
+    """Call a C launcher with ``args`` and ``device``'s current stream,
+    ``device`` made current only where it is not already (the wave's pack
+    and unpack sit on the runner's critical path, so their wrappers skip
+    the device context and the ``Stream`` object that ``_launch`` makes)."""
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if device.index == torch.cuda.current_device():
+        return launcher(*args, stream)
+    with torch.cuda.device(device):
+        return launcher(*args, stream)
+
+
+def pack_cuda_call(bits: torch.Tensor) -> torch.Tensor:
+    """Launch the pack kernel: ``(batch, n)`` bool -> ``(n, ceil(batch /
+    32))`` int32, sample ``32 * j + k`` at bit ``k`` of word ``j``, the pad
+    samples of a ragged last word zero bits.  A non-contiguous ``bits``
+    (such as a transposed view) is copied contiguous first; an empty
+    result launches nothing."""
+    bits = bits.contiguous()
+    device = bits.device
+    _check(device, torch.bool, bits=bits)
+    batch, n = bits.shape
+    w = -(-batch // WORD_BITS)
+    out = torch.empty((n, w), dtype=torch.int32, device=device)
+    if out.numel() == 0:
+        return out
+    err = _on_current_stream(device, library().bitpack_pack,
+                             bits.data_ptr(), batch, n, out.data_ptr(), w)
+    raise_on(err, "pack_kernel")
+    count_launch("pack")
+    return out
+
+
+def unpack_cuda_call(words: torch.Tensor, batch: int) -> torch.Tensor:
+    """Launch the unpack kernel: ``(n, W)`` int32 -> ``(batch, n)`` bool,
+    bit ``k`` of word ``j`` to sample ``32 * j + k``; ``batch`` must lie in
+    ``[0, 32 * W]``; non-contiguous ``words`` are copied contiguous first.
+    An empty result launches nothing."""
+    words = words.contiguous()
+    device = words.device
+    _check(device, words=words)
+    n, w = words.shape
+    if not 0 <= batch <= WORD_BITS * w:
+        raise ValueError(f"batch={batch} outside [0, {WORD_BITS * w}] for "
+                         f"{w} words")
+    out = torch.empty((batch, n), dtype=torch.bool, device=device)
+    if out.numel() == 0:
+        return out
+    err = _on_current_stream(device, library().bitpack_unpack,
+                             words.data_ptr(), n, w, out.data_ptr(), batch)
+    raise_on(err, "unpack_kernel")
+    count_launch("unpack")
+    return out

@@ -5,6 +5,8 @@ Port of ``src/repro/kernels/logic_dsp/ops.py``.  Each executor runs the
 CUDA kernel (``kernel.py``) on a CUDA tensor and the plain PyTorch version
 (``ref.py``) on a CPU tensor; ``use_ref=True`` asks for the plain version
 on either device.  A CUDA tensor never falls back to the plain version.
+:func:`pack_bits` and :func:`unpack_bits` pick the same way, by device
+alone: one pack or unpack kernel launch for a CUDA tensor.
 The bit-level entry points (:func:`logic_infer_bits`,
 :func:`mega_infer_bits`) run on ``device="cuda"`` unless told otherwise and
 raise when no CUDA device is present; ``device="cpu"`` is the explicit
@@ -38,9 +40,9 @@ from repro_torch.core.scheduler import LogicProgram, MegaProgram
 from repro_torch.kernels.logic_dsp import kernel as _k
 from repro_torch.kernels.logic_dsp.ref import (TRUTH_TABLES,
                                                logic_forward_ref,
-                                               mega_forward_ref)
-
-WORD_BITS = 32
+                                               mega_forward_ref,
+                                               pack_bits_ref,
+                                               unpack_bits_ref)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -80,33 +82,23 @@ def calibration_name(device=None) -> str:
 # bit packing (LSB-first, the words of core/packing.py)
 # ---------------------------------------------------------------------------
 
-def _bit_weights(device) -> torch.Tensor:
-    """(32,) int32 ``1 << k``; bit 31 is the int32 sign bit, -2**31."""
-    return torch.tensor([1 << k for k in range(WORD_BITS - 1)] + [-2 ** 31],
-                        dtype=torch.int32, device=device)
-
-
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     """(batch, n) bool -> (n, ceil(batch/32)) int32, sample 32*j+k at bit k
-    of word j.  The int32 sum cannot overflow: the weights are distinct
-    powers of two and only bit 31's is negative."""
-    batch, n = bits.shape
-    w = -(-batch // WORD_BITS)
-    b = torch.zeros((w * WORD_BITS, n), dtype=torch.int32,
-                    device=bits.device)
-    b[:batch] = bits
-    chunks = b.view(w, WORD_BITS, n) * _bit_weights(bits.device)[:, None]
-    return chunks.sum(dim=1, dtype=torch.int32).T.contiguous()
+    of word j; a ragged last word pads zero bits.  One pack kernel launch
+    for a CUDA tensor (which must be bool), the plain version
+    (``ref.pack_bits_ref``) for a CPU tensor."""
+    if bits.device.type == "cuda":
+        return _k.pack_cuda_call(bits)
+    return pack_bits_ref(bits)
 
 
 def unpack_bits(words: torch.Tensor, batch: int) -> torch.Tensor:
-    """(n, W) int32 -> (batch, n) bool.  The arithmetic ``>>`` sign-extends
-    bit 31, and ``& 1`` keeps only the shifted bit."""
-    n, w = words.shape
-    shifts = torch.arange(WORD_BITS, dtype=torch.int32, device=words.device)
-    bits = (words[:, :, None] >> shifts) & 1
-    return bits.reshape(n, w * WORD_BITS)[:, :batch].T.to(torch.bool) \
-        .contiguous()
+    """(n, W) int32 -> (batch, n) bool, the pad samples sliced off.  One
+    unpack kernel launch for a CUDA tensor (which must be int32), the plain
+    version (``ref.unpack_bits_ref``) for a CPU tensor."""
+    if words.device.type == "cuda":
+        return _k.unpack_cuda_call(words, batch)
+    return unpack_bits_ref(words, batch)
 
 
 def _bits_tensor(bits, device: torch.device) -> torch.Tensor:

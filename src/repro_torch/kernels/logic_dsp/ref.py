@@ -12,16 +12,51 @@ Dispatch is *banked*: a step whose branch is below ``MIXED_DISPATCH`` runs
 one slab op on every lane (NOP-padding lanes included; their results land
 on the trash row), and only mixed steps pay the per-lane select.  These are
 what ``ops`` runs for CPU tensors and what the CUDA kernels are held
-against on the card.  ``logic_forward_records`` and
-``mega_forward_records`` repeat the CUDA kernel's own arithmetic (one index
-record per lane, each lane's op as a truth table) so the CPU tests can hold
-it against the reference.
+against on the card (``pack_bits_ref`` and ``unpack_bits_ref`` against
+``csrc/bitpack.cu``'s pack and unpack kernels).  ``logic_forward_records``
+and ``mega_forward_records`` repeat the CUDA kernel's own arithmetic (one
+index record per lane, each lane's op as a truth table) so the CPU tests
+can hold it against the reference.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.gate_ir import MIXED_DISPATCH
+from repro_torch.core.packing import WORD_BITS
+
+
+# ---------------------------------------------------------------------------
+# bit packing (LSB-first, the words of core/packing.py)
+# ---------------------------------------------------------------------------
+
+def _bit_weights(device) -> torch.Tensor:
+    """(32,) int32 ``1 << k``; bit 31 is the int32 sign bit, -2**31."""
+    return torch.tensor([1 << k for k in range(WORD_BITS - 1)] + [-2 ** 31],
+                        dtype=torch.int32, device=device)
+
+
+def pack_bits_ref(bits: torch.Tensor) -> torch.Tensor:
+    """(batch, n) bool -> (n, ceil(batch/32)) int32, sample 32*j+k at bit k
+    of word j.  The int32 sum cannot overflow: the weights are distinct
+    powers of two and only bit 31's is negative."""
+    batch, n = bits.shape
+    w = -(-batch // WORD_BITS)
+    b = torch.zeros((w * WORD_BITS, n), dtype=torch.int32,
+                    device=bits.device)
+    b[:batch] = bits
+    chunks = b.view(w, WORD_BITS, n) * _bit_weights(bits.device)[:, None]
+    return chunks.sum(dim=1, dtype=torch.int32).T.contiguous()
+
+
+def unpack_bits_ref(words: torch.Tensor, batch: int) -> torch.Tensor:
+    """(n, W) int32 -> (batch, n) bool.  The arithmetic ``>>`` sign-extends
+    bit 31, and ``& 1`` keeps only the shifted bit."""
+    n, w = words.shape
+    shifts = torch.arange(WORD_BITS, dtype=torch.int32, device=words.device)
+    bits = (words[:, :, None] >> shifts) & 1
+    return bits.reshape(n, w * WORD_BITS)[:, :batch].T.to(torch.bool) \
+        .contiguous()
 
 
 # Branch k (k < MIXED_DISPATCH) is the slab op for opcode k, applied to ALL

@@ -30,31 +30,39 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # launch accounting (plain integers, bumped only where a kernel launches)
 # ---------------------------------------------------------------------------
 
-#: ``"logic"`` = K1, ``"mega"`` = K2 (both ``mega_kernel``), ``"xnor"`` = K3.
-KERNELS = ("logic", "mega", "xnor")
+#: ``"logic"`` = K1, ``"mega"`` = K2 (both ``mega_kernel``), ``"xnor"`` = K3,
+#: ``"pack"`` / ``"unpack"`` the bit layout kernels (``csrc/bitpack.cu``).
+KERNELS = ("logic", "mega", "xnor", "pack", "unpack")
 #: Launches per (kernel, variant); K1 and K2 name their scratch variant
 #: (``"shared"`` or ``"device"``), K3 has none.
 _launches: dict[tuple[str, str | None], int] = {}
+#: Launches per kernel, all variants: one dict read for the runner's spans,
+#: which note whether a wave's pack and unpack launched.
+_totals: dict[str, int] = {}
 
 
 def launch_count(kernel: str | None = None,
                  variant: str | None = None) -> int:
     """Kernel launches issued so far: one kernel's (``"logic"`` = K1,
-    ``"mega"`` = K2, ``"xnor"`` = K3), one variant's (K1 and K2:
-    ``"shared"`` or ``"device"`` scratch), both, or with no argument all
-    together."""
+    ``"mega"`` = K2, ``"xnor"`` = K3, ``"pack"``, ``"unpack"``), one
+    variant's (K1 and K2: ``"shared"`` or ``"device"`` scratch), both, or
+    with no argument all together."""
+    if kernel is not None and variant is None:
+        return _totals.get(kernel, 0)
     return sum(n for (k, v), n in _launches.items()
                if kernel in (None, k) and variant in (None, v))
 
 
 def reset_launch_counts() -> None:
     _launches.clear()
+    _totals.clear()
 
 
 def count_launch(kernel: str, variant: str | None = None) -> None:
     if kernel not in KERNELS:
         raise ValueError(f"unknown kernel {kernel!r}")
     _launches[kernel, variant] = _launches.get((kernel, variant), 0) + 1
+    _totals[kernel] = _totals.get(kernel, 0) + 1
 
 
 # ---------------------------------------------------------------------------
@@ -68,6 +76,8 @@ SIGNATURES = {
     "logic_dsp_mega": ([_P, _I, _P, _I, _I, _I] + [_P] * 6 + [_I] * 8 + [_P],
                        _I),
     "xnor_gemm_launch": ([_P] * 3 + [_I] * 4 + [_P], _I),
+    "bitpack_pack": ([_P, _I, _I, _P, _I, _P], _I),
+    "bitpack_unpack": ([_P, _I, _I, _P, _I, _P], _I),
     "repro_torch_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -25,8 +25,10 @@ def pack_pm1(bits) -> torch.Tensor:
     Bit k of word w of row r is ``bits[r, 32*w + k]``: the words of
     :func:`~repro_torch.kernels.logic_dsp.ops.pack_bits` on the transpose.
     A set bit 31 makes the word negative, as the reference's uint32 sum
-    cast to int32 does."""
-    return pack_bits(torch.as_tensor(bits).T)
+    cast to int32 does.  The bits are taken as bool (nonzero is 1), the
+    dtype the pack kernel reads; its wrapper copies the transposed view
+    contiguous."""
+    return pack_bits(torch.as_tensor(bits).to(torch.bool).T)
 
 
 def xnor_gemm(a_bits, b_bits, device=None) -> torch.Tensor:

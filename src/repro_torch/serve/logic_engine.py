@@ -64,6 +64,7 @@ from repro_torch.core.verify import effective_mode, verify_artifact
 from repro_torch.kernels.logic_dsp.ops import (calibration_name, mega_arrays,
                                                mega_forward_words, pack_bits,
                                                resolve_device, unpack_bits)
+from repro_torch.kernels.native import launch_count
 
 
 # ---------------------------------------------------------------------------
@@ -939,14 +940,18 @@ class _Runner:
                         x, chunks = io.h2d(block)
                         sp.note(staged=io.staged, chunks=chunks,
                                 bytes=block.nbytes)
-                    with obs.span("runner.pack"):
+                    with obs.span("runner.pack") as sp:
+                        launched = launch_count("pack")
                         words = pack_bits(x)
+                        sp.note(kernel=launch_count("pack") > launched)
                     with obs.span("runner.kernel") as sp:
                         sp.note(**self.plan_note)
                         ow = mega_forward_words(self.mega, words,
                                                 use_ref=self.use_ref)
-                    with obs.span("runner.unpack"):
+                    with obs.span("runner.unpack") as sp:
+                        launched = launch_count("unpack")
                         ys.append(unpack_bits(ow, rows))
+                        sp.note(kernel=launch_count("unpack") > launched)
             with obs.span("runner.d2h") as sp:
                 sp.note(staged=transfers[0].staged)
                 for (dev, stream), io, y in zip(self.shards, transfers, ys):
@@ -1137,8 +1142,11 @@ class LogicEngine:
         ``chunks`` and ``bytes``), ``runner.pack``, ``runner.kernel`` (the
         launch's enqueue, noting the launch plan: its ``scratch`` variant,
         ``steps``, ``n_addr`` rows and ``cols`` a block) and
-        ``runner.unpack``; then one ``runner.d2h`` enqueues every shard's
-        copy back and waits for every shard's stream (noting ``staged``).
+        ``runner.unpack``, the two noting ``kernel``: whether the pack or
+        unpack kernel launched, read from its launch count (False for the
+        CPU's plain version); then one ``runner.d2h`` enqueues every
+        shard's copy back and waits for every shard's stream (noting
+        ``staged``).
         """
         mega = entry.artifact.megaprogram()
         for dev in dict.fromkeys(self.devices):

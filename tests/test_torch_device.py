@@ -155,6 +155,58 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     assert _k.launch_count() == before
 
 
+@pytest.mark.parametrize("batch,n", [(0, 5), (1, 1), (33, 7), (70, 401)])
+def test_pack_and_unpack_stay_plain_on_the_cpu(batch, n):
+    """A CPU tensor takes the plain pack and unpack (``ref.pack_bits_ref``,
+    ``ref.unpack_bits_ref``), bit for bit, and counts no kernel launch."""
+    from repro_torch.kernels.logic_dsp.ref import (pack_bits_ref,
+                                                   unpack_bits_ref)
+    x = torch.from_numpy(_bits(batch + n, batch, n))
+    if batch:
+        x[0] = True                     # bit 0 of every column's word 0
+    before = (_k.launch_count("pack"), _k.launch_count("unpack"))
+    words = ops.pack_bits(x)
+    assert torch.equal(words, pack_bits_ref(x))
+    assert words.shape == (n, -(-batch // 32)) and words.dtype == torch.int32
+    back = ops.unpack_bits(words, batch)
+    assert torch.equal(back, unpack_bits_ref(words, batch))
+    assert torch.equal(back, x)
+    assert (_k.launch_count("pack"), _k.launch_count("unpack")) == before
+
+
+def test_launch_count_of_a_kernel_sums_its_variants(monkeypatch):
+    """One kernel's count (read from its own total) is the sum over its
+    variants, and a reset clears both."""
+    from repro_torch.kernels import native
+    monkeypatch.setattr(native, "_launches", {})
+    monkeypatch.setattr(native, "_totals", {})
+    for kind, variant in [("mega", "shared"), ("mega", "device"),
+                          ("mega", "shared"), ("pack", None)]:
+        native.count_launch(kind, variant)
+    assert native.launch_count("mega") == 3 == (
+        native.launch_count("mega", "shared")
+        + native.launch_count("mega", "device"))
+    assert native.launch_count("pack") == 1
+    assert native.launch_count("unpack") == 0
+    assert native.launch_count() == 4
+    with pytest.raises(ValueError, match="unknown kernel"):
+        native.count_launch("packs")
+    native.reset_launch_counts()
+    assert native.launch_count("mega") == native.launch_count() == 0
+
+
+def test_bitpack_wrappers_refuse_what_the_kernels_do_not_take():
+    """The pack and unpack wrappers take CUDA tensors only, of bool and
+    int32, 2-D; they launch nothing when they refuse."""
+    before = (_k.launch_count("pack"), _k.launch_count("unpack"))
+    x = torch.from_numpy(_bits(1, 40, 8))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _k.pack_cuda_call(x)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _k.unpack_cuda_call(ops.pack_bits(x), 40)
+    assert (_k.launch_count("pack"), _k.launch_count("unpack")) == before
+
+
 @pytest.mark.parametrize("n_unit,want", [(1, 2), (8, 2), (256, 2),
                                          (29_056, 2), (29_057, 1),
                                          (58_112, 1)])
@@ -570,6 +622,101 @@ def test_staged_runner_gives_each_thread_its_buffers_on_card(cuda):
         for x, got in out:
             np.testing.assert_array_equal(
                 got, ops.mega_infer_bits(mega, x, device=cuda))
+
+
+BITPACK_BATCHES = [0, 1, 31, 33, 8192]
+BITPACK_WIDTHS = [1, 7, 84, 120, 400, 401, 2304]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", BITPACK_WIDTHS)
+@pytest.mark.parametrize("batch", BITPACK_BATCHES)
+def test_bitpack_kernels_match_plain_on_card(cuda, batch, n):
+    """The pack and unpack kernels give the plain versions' bits on the
+    card: random bits with an all-ones row in each word group (bit 31
+    set), one launch each where there is anything to lay out; the unpack
+    also of random words and of a batch one short of the words' end."""
+    from repro_torch.kernels.logic_dsp.ref import (pack_bits_ref,
+                                                   unpack_bits_ref)
+    x = torch.from_numpy(_bits(batch * 7 + n, batch, n)).to(cuda)
+    x[31::32] = True
+    x[:1] = True
+    before = (_k.launch_count("pack"), _k.launch_count("unpack"))
+    words = ops.pack_bits(x)
+    want = pack_bits_ref(x)
+    assert words.dtype == torch.int32 and torch.equal(words, want)
+    back = ops.unpack_bits(words, batch)
+    assert back.dtype == torch.bool and torch.equal(back, x)
+    rng = np.random.default_rng(batch + n)
+    rand = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, words.shape,
+                                         dtype=np.int64).astype(np.int32))
+    rand = rand.to(cuda)
+    short = sorted({batch, max(0, batch - 1)})
+    for rows in short:
+        assert torch.equal(ops.unpack_bits(rand, rows),
+                           unpack_bits_ref(rand, rows))
+    torch.cuda.synchronize()
+    assert (_k.launch_count("pack") - before[0],
+            _k.launch_count("unpack") - before[1]) == (
+        int(batch > 0), int(batch > 0) + sum(rows > 0 for rows in short))
+    if batch >= 32 and n:
+        assert (words[:, 0] < 0).all(), "bit 31 set in word 0"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["transposed", "column_slice", "offset"])
+def test_bitpack_kernels_take_views_on_card(cuda, view):
+    """Views that are not a plain contiguous slab pack to the plain
+    version's words: a transposed view (``xnor_gemm``'s ``pack_pm1``), a
+    slice of columns, and rows that start at an odd byte."""
+    from repro_torch.kernels.logic_dsp.ref import pack_bits_ref
+    base = torch.from_numpy(_bits(11, 1000, 403)).to(cuda)
+    x = {"transposed": base.T, "column_slice": base[:, 3:400],
+         "offset": base.view(-1)[3:3 + 999 * 401].view(999, 401)}[view]
+    assert view == "offset" or not x.is_contiguous()
+    assert torch.equal(ops.pack_bits(x), pack_bits_ref(x))
+    words = ops.pack_bits(x.contiguous())
+    assert torch.equal(ops.unpack_bits(words.T.contiguous().T, x.shape[0]),
+                       x)
+
+
+@pytest.mark.cuda
+def test_bitpack_kernels_refuse_other_dtypes_on_card(cuda):
+    """A CUDA slab that is not bool, or words that are not int32, raise
+    before any launch: the card's path has no eager fallback."""
+    x = torch.from_numpy(_bits(12, 64, 9)).to(cuda)
+    before = (_k.launch_count("pack"), _k.launch_count("unpack"))
+    with pytest.raises(TypeError, match="torch.bool"):
+        ops.pack_bits(x.to(torch.uint8))
+    with pytest.raises(TypeError, match="torch.int32"):
+        ops.unpack_bits(ops.pack_bits(x).to(torch.int64), 64)
+    with pytest.raises(ValueError, match="batch=65"):
+        ops.unpack_bits(ops.pack_bits(x), 65)
+    assert (_k.launch_count("pack"), _k.launch_count("unpack")) == (
+        before[0] + 2, before[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [1, 2])
+def test_engine_wave_packs_and_unpacks_once_a_shard_on_card(cuda, shards):
+    """A wave at fc1's widths through ``LogicEngine`` launches one pack and
+    one unpack kernel a shard, and its spans note ``kernel=True``."""
+    from repro_torch import obs
+    g = random_graph(np.random.default_rng(6), 400, 3_000, 120,
+                     unary_frac=0.2, locality=256)
+    eng = LogicEngine(CompileSpec(n_unit=256, optimize="none"),
+                      capacity=8192, devices=[cuda] * shards)
+    x = _bits(13, 8192, 400)
+    np.testing.assert_array_equal(eng.serve(g, x), g.evaluate(x))
+    before = (_k.launch_count("pack"), _k.launch_count("unpack"))
+    obs.clear()
+    with obs.recording():
+        np.testing.assert_array_equal(eng.serve(g, x), g.evaluate(x))
+    assert (_k.launch_count("pack") - before[0],
+            _k.launch_count("unpack") - before[1]) == (shards, shards)
+    notes = [s.attrs for s in obs.spans()
+             if s.label in ("runner.pack", "runner.unpack")]
+    assert notes == [{"kernel": True}] * (2 * shards)
 
 
 @pytest.mark.cuda

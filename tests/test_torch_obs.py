@@ -217,6 +217,53 @@ def test_runner_kernel_notes_the_launch_plan():
     assert plan.scratch == "shared"
 
 
+@pytest.mark.parametrize("devices", [1, 2])
+def test_runner_pack_and_unpack_note_whether_the_kernel_ran(devices):
+    """On the CPU the plain pack and unpack run: each shard's
+    ``runner.pack`` and ``runner.unpack`` note ``kernel=False``, and no
+    pack or unpack kernel is counted."""
+    from repro_torch.kernels import native
+    eng = LogicEngine(CompileSpec(n_unit=16), capacity=CAPACITY,
+                      shard=devices > 1, devices=["cpu"] * devices)
+    _serve(eng, [5])
+    before = (native.launch_count("pack"), native.launch_count("unpack"))
+    with obs.recording():
+        _serve(eng, [CAPACITY, 9])
+    waves = sum(s.label == "runner" for s in obs.spans())
+    notes = [(s.label, s.attrs) for s in obs.spans()
+             if s.label in ("runner.pack", "runner.unpack")]
+    assert waves >= 1 and notes == [("runner.pack", {"kernel": False}),
+                                    ("runner.unpack", {"kernel": False})] \
+        * (waves * devices)
+    assert (native.launch_count("pack"),
+            native.launch_count("unpack")) == before
+
+
+def test_runner_pack_and_unpack_note_the_launch_not_the_device(
+        monkeypatch):
+    """``kernel`` is read from the pack and unpack launch counts, not from
+    the tensor's device: a CPU wave whose pack counts a launch notes
+    ``kernel=True`` on ``runner.pack`` and still False on the unpack."""
+    from repro_torch.kernels import native
+    from repro_torch.kernels.logic_dsp.ref import pack_bits_ref
+    from repro_torch.serve import logic_engine
+
+    def counted_pack(x):
+        native.count_launch("pack")
+        return pack_bits_ref(x)
+
+    monkeypatch.setattr(logic_engine, "pack_bits", counted_pack)
+    eng = LogicEngine(CompileSpec(n_unit=16), capacity=CAPACITY,
+                      devices=["cpu"])
+    with obs.recording():
+        _serve(eng, [CAPACITY])
+    notes = [(s.label, s.attrs) for s in obs.spans()
+             if s.label in ("runner.pack", "runner.unpack")]
+    assert notes and notes == [("runner.pack", {"kernel": True}),
+                               ("runner.unpack", {"kernel": False})] \
+        * (len(notes) // 2)
+
+
 def test_synthesis_records_its_span():
     rng = np.random.default_rng(7)
     x = rng.integers(0, 2, (40, 20)).astype(np.uint8)
